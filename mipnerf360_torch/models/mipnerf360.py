@@ -1,0 +1,271 @@
+"""The Mip-NeRF 360 model: proposal MLP + NeRF MLP (counterpart of
+``mipnerf360_tpu/models/mipnerf360.py``).
+
+The functions take params as the JAX package's nested tree —
+``{"prop": {"layers": [...]}, "nerf": {"trunk"|"density"|"rgb": {"layers":
+[...]}}}`` of tensors — and :class:`MipNeRF360` is the ``nn.Module`` that holds
+them with the same nesting. Where the JAX package threads a ``jax.random``
+key, the randomized branches here take explicit noise tensors (or draw from a
+``torch.Generator``). Both composites go through ``ops.fused``: a CUDA tensor
+launches the Hopper kernel K1, a CPU tensor takes its plain version.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, NamedTuple, Optional
+
+import torch
+from torch import nn
+
+from ..config import ModelConfig
+from ..core.encoding import integrated_pos_enc, viewdir_enc
+from ..core.fused_encode import factored_ipe
+from ..core.gaussians import cast_rays
+from ..core.rays import Rays, rays_map, rays_to_device, resolve_device
+from ..core.rendering import composite_outputs
+from ..core.sampling import sample_along_rays
+from ..core.spacing import t_to_s
+from ..ops import fused
+from .mlp import apply_mlp, init_mlp
+
+Params = Dict[str, Any]
+
+
+class RenderNoise(NamedTuple):
+    """The uniform draws of a randomized forward: ``sample`` [B, N+1] in
+    [0, 1) jitters the proposal edges, ``resample`` [B, N+1] in
+    [0, 1/(N+1) - eps) is the stratified inverse-CDF jitter of the NeRF level
+    (the draws the JAX package takes from its two split keys)."""
+
+    sample: torch.Tensor
+    resample: torch.Tensor
+
+
+def _compute_dtype(cfg: ModelConfig) -> torch.dtype:
+    return getattr(torch, cfg.compute_dtype)
+
+
+def init_model(cfg: ModelConfig, generator: Optional[torch.Generator] = None
+               ) -> Params:
+    """Kaiming-uniform params drawn on the CPU from ``generator`` (seed 0
+    when None), with the ``pad_input_lanes`` zero rows appended after the
+    real-fan-in draw."""
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    d = cfg.input_dim
+    prop_sizes = [d] + [cfg.hidden_proposal] * cfg.proposal_depth + [1]
+    nerf_sizes = [d] + [cfg.hidden_nerf] * cfg.nerf_depth
+    params = {
+        "prop": init_mlp(generator, prop_sizes),
+        "nerf": {
+            "trunk": init_mlp(generator, nerf_sizes),
+            "density": init_mlp(generator, [cfg.hidden_nerf, 1]),
+            "rgb": init_mlp(generator, [cfg.hidden_nerf, 3]),
+        },
+    }
+    pad = cfg.padded_input_dim - d
+    if pad:
+        for tower in (params["prop"], params["nerf"]["trunk"]):
+            w = tower["layers"][0]["w"]
+            tower["layers"][0]["w"] = torch.cat(
+                [w, torch.zeros((pad, w.shape[1]), dtype=w.dtype)], dim=0)
+    return params
+
+
+def map_params(fn, params: Params) -> Params:
+    """Apply ``fn`` to every array of a params tree, keeping its nesting."""
+    if isinstance(params, dict):
+        return {k: map_params(fn, v) for k, v in params.items()}
+    if isinstance(params, (list, tuple)):
+        return [map_params(fn, v) for v in params]
+    return fn(params)
+
+
+def _prop_activations(cfg: ModelConfig):
+    final = "sigmoid" if cfg.trunk_final_sigmoid else "relu"
+    return ["relu"] * (cfg.proposal_depth - 1) + [final] + ["none"]
+
+
+def _trunk_activations(cfg: ModelConfig):
+    final = "sigmoid" if cfg.trunk_final_sigmoid else "relu"
+    return ["relu"] * (cfg.nerf_depth - 1) + [final]
+
+
+def _softplus(x):
+    """``jax.nn.softplus``, which is ``logaddexp(x, 0)``."""
+    return torch.logaddexp(x, torch.zeros_like(x))
+
+
+def _encode(cfg: ModelConfig, rays: Rays, t_vals):
+    """Cast intervals to contracted Gaussians and build MLP input features."""
+    if cfg.factored_encode:
+        pos = factored_ipe(t_vals, rays.origins, rays.directions, rays.radii,
+                           ray_shape=cfg.ray_shape,
+                           min_deg=cfg.ipe_min_deg,
+                           max_deg=cfg.ipe_max_deg)     # [B, N, 42*scales]
+    else:
+        means, covs = cast_rays(t_vals, rays.origins, rays.directions,
+                                rays.radii, ray_shape=cfg.ray_shape)
+        pos = integrated_pos_enc(means, covs, cfg.ipe_min_deg,
+                                 cfg.ipe_max_deg)       # [B, N, 42*scales]
+    view = viewdir_enc(rays.viewdirs, cfg.viewdir_min_deg, cfg.viewdir_max_deg)
+    view = view[..., None, :].expand(pos.shape[:-1] + (view.shape[-1],))
+    x = torch.cat([pos, view], dim=-1)
+    pad = cfg.padded_input_dim - cfg.input_dim
+    if pad:
+        x = torch.cat([x, x.new_zeros(x.shape[:-1] + (pad,))], dim=-1)
+    return x
+
+
+def prop_forward(params: Params, cfg: ModelConfig, rays: Rays,
+                 randomized: bool, *, noise=None, generator=None):
+    """Proposal level: sample -> encode -> density -> weights."""
+    t_vals = sample_along_rays(rays.near, rays.far, cfg.num_samples, randomized,
+                               noise=noise, generator=generator)
+    x = _encode(cfg, rays, t_vals)
+    raw = apply_mlp(params["prop"], x, _prop_activations(cfg), _compute_dtype(cfg))
+    density = _softplus(raw[..., 0] + cfg.density_bias)
+    weights = fused.compute_alpha_weights(
+        density, t_vals, rays.directions, cfg.use_pallas)
+    return t_vals, weights
+
+
+def nerf_forward(params: Params, cfg: ModelConfig, rays: Rays, t_vals, weights,
+                 randomized: bool, *, noise=None, generator=None):
+    """NeRF level: resample -> encode -> trunk -> heads -> composite.
+
+    ``cfg.remat`` (recompute the tower in backward) changes nothing here: the
+    port's forward runs without autograd until the backward kernel exists.
+    """
+    new_t = fused.resample_along_rays(t_vals, weights, randomized,
+                                      cfg.resample_padding, cfg.use_pallas,
+                                      u_typo=cfg.resample_u_typo,
+                                      noise=noise, generator=generator)
+    x = _encode(cfg, rays, new_t)
+    dt = _compute_dtype(cfg)
+    nerf = params["nerf"]
+    feat = apply_mlp(nerf["trunk"], x, _trunk_activations(cfg), dt)
+    raw_density = apply_mlp(
+        nerf["density"], feat,
+        ["sigmoid" if cfg.density_head_sigmoid else "none"], dt)
+    raw_rgb = apply_mlp(nerf["rgb"], feat, ["sigmoid"], dt)
+
+    rgb = raw_rgb * (1.0 + 2.0 * cfg.rgb_padding) - cfg.rgb_padding
+    density = _softplus(raw_density[..., 0] + cfg.density_bias)
+    w = fused.compute_alpha_weights(
+        density, new_t, rays.directions, cfg.use_pallas)
+    comp_rgb, distance, acc = composite_outputs(rgb, w, new_t, cfg.white_bkgd)
+    s_vals = t_to_s(new_t, rays.near, rays.far)
+    return {
+        "rgb": comp_rgb,
+        "distance": distance,
+        "acc": acc,
+        "t_vals": new_t,
+        "weights": w,
+        "s_vals": s_vals,
+    }
+
+
+def render_rays(params: Params, cfg: ModelConfig, rays: Rays, randomized: bool,
+                *, noise: Optional[RenderNoise] = None,
+                generator: Optional[torch.Generator] = None):
+    """Full two-level forward, returning both levels' internals.
+
+    With ``randomized``, ``noise`` supplies both levels' uniform draws; when
+    it is None they are drawn from ``generator``.
+    """
+    if cfg.sample_shards > 1:
+        raise NotImplementedError(
+            "sample_shards > 1 (the sample-axis composite) is not ported yet")
+    n_prop, n_nerf = (None, None) if noise is None else noise
+    t_prop, w_prop = prop_forward(params, cfg, rays, randomized,
+                                  noise=n_prop, generator=generator)
+    out = nerf_forward(params, cfg, rays, t_prop, w_prop, randomized,
+                       noise=n_nerf, generator=generator)
+    out["t_prop"] = t_prop
+    out["w_prop"] = w_prop
+    return out
+
+
+def render_image(params: Params, cfg: ModelConfig, rays: Rays, *,
+                 chunk: int = 8192, mesh=None, device="cuda"):
+    """Render a flat [n_rays] batch deterministically, ``chunk`` rays at a time.
+
+    ``rays`` (NumPy arrays or tensors) and ``params`` are moved to ``device``,
+    which is the card unless the caller passes ``device="cpu"``; a missing
+    card raises. Rays are padded with the last ray up to a multiple of
+    ``chunk``, chunks are rendered in a host loop under
+    ``torch.inference_mode()``, and the results stay on ``device``.
+    Returns (rgb [n,3], distance [n], acc [n]).
+    """
+    if mesh is not None or cfg.sample_shards > 1:
+        raise NotImplementedError(
+            "render_image on a mesh (data- or sample-parallel) is not ported yet")
+    device = resolve_device(device)
+    rays = rays_to_device(rays, device)
+    params = map_params(lambda p: p.to(device), params)
+    n = rays.origins.shape[0]
+    pad = (-n) % chunk
+    if pad:
+        rays = rays_map(
+            lambda x: torch.cat([x, x[-1:].expand((pad,) + x.shape[1:])], dim=0),
+            rays)
+    rgb, distance, acc = [], [], []
+    with torch.inference_mode():
+        for start in range(0, n + pad, chunk):
+            chunk_rays = rays_map(lambda x: x[start:start + chunk], rays)
+            out = render_rays(params, cfg, chunk_rays, randomized=False)
+            rgb.append(out["rgb"])
+            distance.append(out["distance"])
+            acc.append(out["acc"])
+    return (torch.cat(rgb)[:n], torch.cat(distance)[:n], torch.cat(acc)[:n])
+
+
+class _Linear(nn.Module):
+    def __init__(self, layer):
+        super().__init__()
+        self.w = nn.Parameter(torch.as_tensor(layer["w"]))
+        self.b = nn.Parameter(torch.as_tensor(layer["b"]))
+
+
+class _MLP(nn.Module):
+    def __init__(self, mlp):
+        super().__init__()
+        self.layers = nn.ModuleList(_Linear(layer) for layer in mlp["layers"])
+
+    def tree(self):
+        return {"layers": [{"w": l.w, "b": l.b} for l in self.layers]}
+
+
+class MipNeRF360(nn.Module):
+    """The model's params as an ``nn.Module``, nested as the JAX tree
+    (state-dict keys ``prop.layers.0.w``, ``nerf.trunk.layers.3.b``, ...).
+
+    ``params`` (a tree as :func:`init_model` or ``interop.params_from_jax``
+    returns) defaults to :func:`init_model` with ``generator``.
+    """
+
+    def __init__(self, cfg: ModelConfig, params: Optional[Params] = None, *,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.cfg = cfg
+        if params is None:
+            params = init_model(cfg, generator)
+        self.prop = _MLP(params["prop"])
+        self.nerf = nn.ModuleDict(
+            {k: _MLP(params["nerf"][k]) for k in ("trunk", "density", "rgb")})
+
+    def params(self) -> Params:
+        """The parameters as the nested tree the functions take."""
+        return {"prop": self.prop.tree(),
+                "nerf": {k: m.tree() for k, m in self.nerf.items()}}
+
+    def forward(self, rays: Rays, randomized: bool = False, *,
+                noise: Optional[RenderNoise] = None,
+                generator: Optional[torch.Generator] = None):
+        return render_rays(self.params(), self.cfg, rays, randomized,
+                           noise=noise, generator=generator)
+
+    def render_image(self, rays: Rays, *, chunk: int = 8192, device="cuda"):
+        """:func:`render_image` with this module's params."""
+        return render_image(self.params(), self.cfg, rays, chunk=chunk,
+                            device=device)

@@ -1,0 +1,102 @@
+"""Kernel K1 (density -> compositing weights) and the rendering around it.
+
+On the CPU: the port's plain version of K1 against the JAX package's Pallas
+kernel run in interpret mode (as tests/test_pallas_ops.py runs it), at the
+Pallas-vs-core tolerance rtol 1e-5 / atol 1e-6; its autograd gradient
+against ``jax.grad`` through the Pallas custom VJP, at rtol 1e-4 / atol 1e-5
+(the formula the backward kernel K2 must meet); and the compositing around it.
+The kernel itself is held against the plain version on the card by
+tests/test_torch_cuda.py and chip_smoke.py.
+"""
+from importlib import import_module
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental.pallas import tpu as pltpu
+
+from mipnerf360_tpu.ops.pallas.composite import composite_weights as pallas_composite
+from mipnerf360_torch.ops import composite, fused
+
+j_render = import_module("mipnerf360_tpu.core.rendering")
+t_render = import_module("mipnerf360_torch.core.rendering")
+
+torch.set_num_threads(1)
+
+
+def _inputs(b=300, n=64, seed=0, density_range=(0.0, 3.0)):
+    rng = np.random.default_rng(seed)
+    density = rng.uniform(*density_range, (b, n)).astype(np.float32)
+    t_vals = np.sort(rng.uniform(0.1, 6.0, (b, n + 1)).astype(np.float32), -1)
+    dirs = rng.normal(size=(b, 3)).astype(np.float32)
+    return density, t_vals, dirs
+
+
+def _t(x):
+    return torch.from_numpy(np.asarray(x, np.float32).copy())
+
+
+@pytest.mark.parametrize("b,n", [(300, 64), (300, 16)])
+def test_plain_k1_matches_pallas_kernel(b, n):
+    density, t_vals, dirs = _inputs(b, n)
+    with pltpu.force_tpu_interpret_mode():
+        want = pallas_composite(*map(jnp.asarray, (density, t_vals, dirs)))
+    got = composite.plain_composite_weights(_t(density), _t(t_vals), _t(dirs))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-6)
+
+
+def test_plain_k1_gradient_matches_pallas_vjp():
+    density, t_vals, dirs = _inputs(b=64, n=16, seed=2)
+    tgt = np.random.default_rng(1).uniform(size=(64, 16)).astype(np.float32)
+
+    def j_loss(d):
+        w = pallas_composite(d, jnp.asarray(t_vals), jnp.asarray(dirs))
+        return jnp.sum((w - tgt) ** 2) + jnp.sum(w * tgt)
+
+    with pltpu.force_tpu_interpret_mode():
+        want = jax.grad(j_loss)(jnp.asarray(density))
+    d = _t(density).requires_grad_()
+    w = composite.plain_composite_weights(d, _t(t_vals), _t(dirs))
+    loss = torch.sum((w - _t(tgt)) ** 2) + torch.sum(w * _t(tgt))
+    (got,) = torch.autograd.grad(loss, [d])
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("density_range", [(0.0, 1e-4), (50.0, 500.0)])
+def test_compute_alpha_weights_matches_jax_at_extremes(density_range):
+    """Near-zero density (the expm1 region) and opaque rays."""
+    density, t_vals, dirs = _inputs(64, 16, seed=3, density_range=density_range)
+    got_w, got_t = t_render.compute_alpha_weights(_t(density), _t(t_vals), _t(dirs))
+    want_w, want_t = j_render.compute_alpha_weights(
+        *map(jnp.asarray, (density, t_vals, dirs)))
+    np.testing.assert_allclose(got_w.numpy(), np.asarray(want_w), rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(got_t.numpy(), np.asarray(want_t), rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("white_bkgd", [False, True])
+def test_volumetric_rendering_matches_jax(white_bkgd):
+    density, t_vals, dirs = _inputs(48, 16, seed=4)
+    density[0] = 0.0          # empty ray: distance 0/0 -> clipped to t[0]
+    rgb = np.random.default_rng(5).uniform(size=(48, 16, 3)).astype(np.float32)
+    got = t_render.volumetric_rendering(_t(rgb), _t(density), _t(t_vals),
+                                        _t(dirs), white_bkgd)
+    want = j_render.volumetric_rendering(
+        *map(jnp.asarray, (rgb, density, t_vals, dirs)), white_bkgd)
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all()
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5, atol=1e-6)
+
+
+def test_cpu_dispatch_takes_plain_version_without_counting():
+    density, t_vals, dirs = map(_t, _inputs(32, 16, seed=6))
+    before = composite.launches
+    for mode in ("auto", "on", "off"):
+        w = fused.compute_alpha_weights(density, t_vals, dirs, mode)
+        torch.testing.assert_close(
+            w, composite.plain_composite_weights(density, t_vals, dirs),
+            rtol=0, atol=0)
+    assert composite.launches == before
+    with pytest.raises(ValueError):
+        fused.compute_alpha_weights(density, t_vals, dirs, "maybe")
