@@ -3,20 +3,27 @@
     python3 chip_smoke.py [--profile DIR]
 
 Builds every CUDA kernel of ``mipnerf360_torch`` from ``mipnerf360_torch/csrc``
-with ``nvcc``, holds each kernel against its plain PyTorch version on the
-card, renders the synthetic scene's held-out views at the full width of the
-``synthetic_quality`` preset through ``render_image``, and checks the card
-against the CPU on the whole render path. Any failure exits non-zero. It
-needs one CUDA device, and refuses to run without one or without the
-package beside it.
+with ``nvcc``, holds each kernel (K1, the composite forward, and K2, its
+backward) against its plain PyTorch version on the card, then drives the
+port's two paths at the full width of the ``synthetic_quality`` preset:
+
+- the render: the synthetic scene's held-out views through ``render_image``;
+- training: joint-cadence train steps (``joint_cadence_step``) of 4096 rays
+  drawn from the synthetic train split.
+
+Each path runs with the kernels' launch counts set to 0 just before it and
+read just after. The card is checked against the CPU on both paths. Any
+failure exits non-zero. It needs one CUDA device, and refuses to run without
+one or without the package beside it.
 
 Output, one line per phase; the line before the last is the per-kernel JSON
 record and the last line is ``{"ok": true, "device": {...}}``. With
-``--profile DIR`` it also profiles one warm render and writes the trace and
-the kernel table to DIR.
+``--profile DIR`` it also profiles one warm render and one warm train step
+and writes their traces and kernel tables to DIR.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -34,12 +41,31 @@ F32_FLOPS_PER_S = 67e12
 # Render-path settings: the synthetic_quality preset's held-out views.
 RENDER_CHUNK = 4096
 PARITY_RAYS = 128
+# Train-path settings: one warm step, then TRAIN_STEPS timed steps of the
+# preset's batch (4096 rays).
+TRAIN_STEPS = 6
 
 # K1 against its plain version: the JAX package's Pallas-vs-core tolerance
 # (tests/test_pallas_ops.py). The two differ only in the order of the
 # transmittance prefix sum (warp scan vs torch.cumsum) and in the last ulp
 # of exp/expm1/sqrt.
 K1_RTOL, K1_ATOL = 1e-5, 1e-6
+# K2 against its plain version: the JAX package's Pallas-vs-core backward
+# tolerance (tests/test_pallas_ops.py). Besides the prefix sum, the suffix
+# sum of g*w is taken in another order (reverse warp scan vs flipped cumsum).
+K2_RTOL, K2_ATOL = 1e-4, 1e-5
+
+# The five shapes each composite kernel is held at: the train batch (and
+# render chunk), ragged B with small N, one ray with N not a multiple of 32,
+# near-zero density (dd < 1e-2, the expm1 region) and opaque rays (T
+# underflows to 0).
+KERNEL_CASES = [
+    ("train batch / render chunk", 4096, 64, (0.0, 3.0)),
+    ("ragged B, small N", 300, 16, (0.0, 3.0)),
+    ("one ray, N=65", 1, 65, (0.0, 3.0)),
+    ("near-zero density (dd < 1e-2)", 1024, 64, (0.0, 1e-4)),
+    ("large density", 1024, 64, (50.0, 500.0)),
+]
 
 
 def _fail(msg: str) -> None:
@@ -88,28 +114,33 @@ def _k1_inputs(b: int, n: int, density_range, seed: int):
     return [torch.from_numpy(x).cuda() for x in (density, t_vals, dirs)]
 
 
-def _k1_bound_ms(b: int, n: int):
-    """Least time for K1 at [b, n]: every input read once, w written once;
-    ~8 f32 operations per sample (difference, two products, scan add,
-    exp, expm1, carry add, product) beside the bytes."""
-    nbytes = 4 * (b * n + b * (n + 1) + 3 * b) + 4 * b * n
-    flops = 8 * b * n + 5 * b
+def _bound_ms(nbytes: int, flops: int):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / F32_FLOPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def _k1_bound_ms(b: int, n: int):
+    """Least time for K1 at [b, n]: every input read once, w written once;
+    ~8 f32 operations per sample (difference, two products, scan add,
+    exp, expm1, carry add, product) beside the bytes."""
+    nbytes = 4 * (b * n + b * (n + 1) + 3 * b) + 4 * b * n
+    return _bound_ms(nbytes, 8 * b * n + 5 * b)
+
+
+def _k2_bound_ms(b: int, n: int):
+    """Least time for K2 at [b, n]: density, t_vals, dirs and g read once,
+    d_density written once; ~16 f32 operations per sample (K1's 8 to
+    recompute T and w, then exp, two products for g*w and the local term,
+    the reverse scan add, carry add, subtraction, product by delta)."""
+    nbytes = 4 * (b * n + b * (n + 1) + 3 * b + b * n) + 4 * b * n
+    return _bound_ms(nbytes, 16 * b * n + 5 * b)
+
+
 def check_k1(composite):
     """Phase 3: K1 against its plain version on the card, then timed."""
-    cases = [
-        ("render chunk", 4096, 64, (0.0, 3.0)),
-        ("ragged B, small N", 300, 16, (0.0, 3.0)),
-        ("one ray, N=65", 1, 65, (0.0, 3.0)),
-        ("near-zero density (dd < 1e-2)", 1024, 64, (0.0, 1e-4)),
-        ("large density", 1024, 64, (50.0, 500.0)),
-    ]
     max_err = 0.0
-    for seed, (label, b, n, rng) in enumerate(cases):
+    for seed, (label, b, n, rng) in enumerate(KERNEL_CASES):
         density, t_vals, dirs = _k1_inputs(b, n, rng, seed)
         w = composite.composite_weights(density, t_vals, dirs)
         ref = composite.plain_composite_weights(density, t_vals, dirs)
@@ -137,24 +168,63 @@ def check_k1(composite):
                 bound_ms=bound_ms, bound_by=bound_by)
 
 
+def check_k2(composite):
+    """Phase 3b: K2 against its plain version on the card, with a seeded
+    random cotangent, then timed."""
+    max_err = 0.0
+    for seed, (label, b, n, rng) in enumerate(KERNEL_CASES):
+        density, t_vals, dirs = _k1_inputs(b, n, rng, 100 + seed)
+        g = torch.from_numpy(np.random.default_rng(200 + seed).normal(
+            size=(b, n)).astype(np.float32)).cuda()
+        got = composite._launch_bwd(density, t_vals, dirs, g)
+        ref = composite.plain_composite_weights_bwd(density, t_vals, dirs, g)
+        torch.cuda.synchronize()
+        err = (got - ref).abs().max().item()
+        max_err = max(max_err, err)
+        ok = torch.allclose(got, ref, rtol=K2_RTOL, atol=K2_ATOL)
+        print(f"K2 vs plain [{label}] B={b} N={n}: max_abs_err={err:.3e} "
+              f"rtol={K2_RTOL} atol={K2_ATOL} {'ok' if ok else 'MISMATCH'}",
+              flush=True)
+        if not ok or not torch.isfinite(got).all():
+            _fail(f"K2 disagrees with its plain version ({label})")
+
+    b, n = RENDER_CHUNK, 64
+    density, t_vals, dirs = _k1_inputs(b, n, (0.0, 3.0), 98)
+    g = torch.from_numpy(np.random.default_rng(97).normal(
+        size=(b, n)).astype(np.float32)).cuda()
+    ms = _device_ms(lambda: composite._launch_bwd(density, t_vals, dirs, g))
+    plain_ms = _device_ms(
+        lambda: composite.plain_composite_weights_bwd(density, t_vals, dirs, g))
+    bound_ms, bound_by = _k2_bound_ms(b, n)
+    print(f"K2 time B={b} N={n} (inputs hot in L2): kernel {ms * 1e3:.2f} us, "
+          f"plain {plain_ms * 1e3:.2f} us, bound {bound_ms * 1e3:.3f} us by "
+          f"{bound_by}; no single PyTorch call computes K2 (library_ms null)",
+          flush=True)
+    return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
 def _kernel_class(name: str) -> str:
     if "composite_fwd" in name:
         return "K1 composite"
+    if "composite_bwd" in name:
+        return "K2 composite backward"
     if any(s in name.lower() for s in ("gemm", "nvjet", "cutlass", "sm90_xmma")):
         return "matmul (cuBLAS)"
     return "other (elementwise, reductions, copies)"
 
 
-def profile_render(render, out_dir: Path) -> None:
-    """``--profile DIR``: one warm render under ``torch.profiler``; prints the
-    device's busy share and its time by kernel class and by kernel, and
-    writes the Chrome trace and the kernel table to ``out_dir``."""
+def profile_call(fn, out_dir: Path, tag: str) -> None:
+    """``--profile DIR``: one warm call of ``fn`` (a render or a train step)
+    under ``torch.profiler``; prints the device's busy share and its time by
+    kernel class and by kernel, and writes the Chrome trace and the kernel
+    table to ``out_dir`` as ``<tag>_trace.json`` and ``<tag>_kernels.txt``."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        render()
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     by_name, by_class = {}, {}
@@ -167,20 +237,205 @@ def profile_render(render, out_dir: Path) -> None:
         cls = _kernel_class(e.name)
         by_class[cls] = by_class.get(cls, 0.0) + us
     busy = sum(by_class.values())
-    print(f"profile: wall {wall_us / 1e3:.1f} ms, device busy {busy / 1e3:.1f} ms "
+    print(f"profile [{tag}]: wall {wall_us / 1e3:.1f} ms, device busy "
+          f"{busy / 1e3:.1f} ms "
           f"({100 * busy / wall_us:.1f}%), idle {100 * (1 - busy / wall_us):.1f}%",
           flush=True)
     for cls, us in sorted(by_class.items(), key=lambda kv: -kv[1]):
-        print(f"profile: {cls}: {us / 1e3:.2f} ms ({100 * us / busy:.1f}% of busy)",
-              flush=True)
+        print(f"profile [{tag}]: {cls}: {us / 1e3:.2f} ms "
+              f"({100 * us / busy:.1f}% of busy)", flush=True)
     rows = sorted(by_name.items(), key=lambda kv: -kv[1][1])
     out_dir.mkdir(parents=True, exist_ok=True)
-    with open(out_dir / "render_kernels.txt", "w") as f:
+    with open(out_dir / f"{tag}_kernels.txt", "w") as f:
         for name, (count, us) in rows:
             f.write(f"{us:12.1f} us {count:6d}x  {name}\n")
     for name, (count, us) in rows[:12]:
-        print(f"profile: {us / 1e3:8.2f} ms {count:5d}x {name[:110]}", flush=True)
-    prof.export_chrome_trace(str(out_dir / "render_trace.json"))
+        print(f"profile [{tag}]: {us / 1e3:8.2f} ms {count:5d}x {name[:100]}",
+              flush=True)
+    prof.export_chrome_trace(str(out_dir / f"{tag}_trace.json"))
+
+
+def _mlp_flops_per_sample(params) -> tuple:
+    """GEMM FLOPs per sample of both MLPs: forward (2*in*out per layer) and
+    backward (dW for every layer, dX for every layer whose input needs a
+    gradient: all but the first layers of the proposal MLP and the trunk,
+    whose input is the encoded rays)."""
+    nerf = params["nerf"]
+    towers = [(params["prop"], False), (nerf["trunk"], False),
+              (nerf["density"], True), (nerf["rgb"], True)]
+    fwd = bwd = 0
+    for mlp, input_needs_grad in towers:
+        for i, layer in enumerate(mlp["layers"]):
+            gemm = 2 * layer["w"].shape[0] * layer["w"].shape[1]
+            fwd += gemm
+            bwd += gemm * (2 if i > 0 or input_needs_grad else 1)
+    return fwd, bwd
+
+
+def drive_train(cfg, composite, card: str, profile_dir):
+    """Phase 6: joint-cadence train steps at full width on the card: one warm
+    step, then TRAIN_STEPS timed steps with the kernels' counts set to 0
+    just before and read just after. Returns (K1 launches, K2 launches)."""
+    from mipnerf360_torch.core.rays import rays_to_device, take_rays
+    from mipnerf360_torch.data.synthetic import synthetic_dataset
+    from mipnerf360_torch.train import init_train_state, make_train_step
+    from mipnerf360_torch.train.state import leaves
+
+    mcfg, batch = cfg.model, cfg.train.batch_size
+    state = init_train_state(mcfg, cfg.train,
+                             generator=torch.Generator().manual_seed(0),
+                             device="cuda")
+    train = synthetic_dataset(cfg.data, "train",
+                              background=1.0 if mcfg.white_bkgd else 0.0)
+    bank = rays_to_device(train.rays, "cuda")
+    bank_pixels = torch.as_tensor(train.pixels, device="cuda")
+    gen = torch.Generator().manual_seed(1)
+    batches = []
+    for _ in range(TRAIN_STEPS + 1):
+        idx = torch.randint(train.n_rays, (batch,), generator=gen).cuda()
+        batches.append((take_rays(bank, idx), bank_pixels[idx]))
+    step = make_train_step(cfg)
+    print(f"train: synthetic_quality, {cfg.train.cadence} cadence, "
+          f"{batch} rays/step drawn from {train.n_images} train views "
+          f"{train.h}x{train.w} ({train.n_rays} rays)", flush=True)
+    before = [p.detach().clone() for p in leaves(state.params)]
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, aux = step(state, *batches[0])
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+
+    composite.launches = composite.bwd_launches = 0
+    times, auxes = [], []
+    for rays, pixels in batches[1:]:
+        t0 = time.perf_counter()
+        state, aux = step(state, rays, pixels)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        auxes.append(aux)
+    k1, k2 = composite.launches, composite.bwd_launches
+    peak = torch.cuda.max_memory_allocated()
+
+    med = statistics.median(times)
+    fwd, bwd = _mlp_flops_per_sample(state.params)
+    flops = (fwd + bwd) * batch * mcfg.num_samples
+    print(f"train step: first {warm * 1e3:.1f} ms; median of {len(times)} "
+          f"timed steps {med * 1e3:.2f} ms/step (min {min(times) * 1e3:.2f}, "
+          f"max {max(times) * 1e3:.2f}), {batch / med:.0f} rays/s; MLP GEMMs "
+          f"{flops / 1e12:.2f} TFLOP/step ({fwd / 1e6:.2f} + {bwd / 1e6:.2f} "
+          f"MFLOP/sample fwd + bwd), {flops / med / 1e12:.1f} TFLOP/s over "
+          f"the step; peak memory {peak / 2**30:.2f} GiB; on {card}", flush=True)
+    print(f"train step times (ms): {[round(t * 1e3, 3) for t in times]}",
+          flush=True)
+    print("train aux, last step: " + ", ".join(
+        f"{k}={v.item():.6g}" for k, v in auxes[-1].items()), flush=True)
+    print(f"train: K1 launches {k1}, K2 launches {k2} over {len(times)} steps "
+          f"(expected {2 * len(times)} each)", flush=True)
+    if (k1, k2) != (2 * len(times), 2 * len(times)):
+        _fail(f"train steps launched K1 {k1} and K2 {k2} times, expected "
+              f"{2 * len(times)} each")
+    for i, aux in enumerate(auxes):
+        bad = [k for k, v in aux.items() if not torch.isfinite(v).all()]
+        if bad:
+            _fail(f"train step {i}: aux {bad} not finite")
+    unchanged = [i for i, (a, b) in enumerate(zip(before, leaves(state.params)))
+                 if torch.equal(a, b)]
+    if unchanged:
+        _fail(f"param leaves {unchanged} did not change over the train steps")
+    print(f"train: all aux finite, all {len(before)} param leaves changed",
+          flush=True)
+    if profile_dir is not None:
+        profile_call(lambda: step(state, *batches[1]), profile_dir, "train")
+    return k1, k2
+
+
+def _rel_l2(a, b) -> float:
+    return ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+
+
+def check_train_card_vs_cpu(cfg):
+    """Phase 7: one joint step's losses and per-leaf gradients at full width,
+    card against CPU: same params, same 128 rays of the train split, same
+    explicit noise."""
+    from mipnerf360_torch.core.rays import rays_to_device, take_rays
+    from mipnerf360_torch.data.synthetic import synthetic_dataset
+    from mipnerf360_torch.models.mipnerf360 import RenderNoise
+    from mipnerf360_torch.train import init_train_state, joint_cadence_grads
+    from mipnerf360_torch.train.state import make_train_state
+
+    train = synthetic_dataset(cfg.data, "train",
+                              background=1.0 if cfg.model.white_bkgd else 0.0)
+    rng = np.random.default_rng(3)
+    idx = rng.choice(train.n_rays, PARITY_RAYS, replace=False)
+    rays = take_rays(train.rays, idx)
+    pixels = torch.from_numpy(train.pixels[idx])
+    n = cfg.model.num_samples
+    eps = np.finfo(np.float32).eps
+    noise = RenderNoise(
+        torch.from_numpy(rng.uniform(size=(PARITY_RAYS, n + 1)).astype(np.float32)),
+        torch.from_numpy(rng.uniform(0.0, 1.0 / (n + 1) - eps,
+                                     (PARITY_RAYS, n + 1)).astype(np.float32)))
+    cpu = init_train_state(cfg.model, cfg.train,
+                           generator=torch.Generator().manual_seed(2),
+                           device="cpu")
+    card = make_train_state(cpu.params, device="cuda",
+                            generator=torch.Generator("cuda"))
+    # float32, TF32 off: only summation orders differ (cuBLAS vs the CPU's
+    # GEMM, warp scans vs cumsum), as for the render: the losses are held at
+    # rtol 1e-4 / atol 1e-4. The gradients are held per leaf, by relative L2
+    # error, at 2e-3: the resampled t of the NeRF level differ by ~1e-6 (as
+    # the render check shows), so a few trunk pre-activations within ~1e-6
+    # of zero flip their ReLU mask between the two, and each flip moves one
+    # sample's whole term of a dW column. That puts trunk leaves at 2e-4 -
+    # 7e-4 (the proposal MLP's and the heads' at ~1e-7) on the card this
+    # was measured on, and single entries near atol 1e-4; a wrong formula
+    # is off by 1e-2 or more. The largest entrywise ratio is printed too.
+    # bfloat16: every hidden unit is rounded to bf16 forward, and dX and dW
+    # are rounded to bf16 backward; another f32 summation order flips some
+    # of those roundings (2^-8 relative each), and the flips pass through 8
+    # layers both ways and both composites. Losses are held at rtol 2e-2 /
+    # atol 2e-2 as the render's outputs, gradient leaves at a relative L2
+    # error of 5e-2.
+    checks = [("float32", dict(rtol=1e-4, atol=1e-4), 2e-3),
+              ("bfloat16", dict(rtol=2e-2, atol=2e-2), 5e-2)]
+    for dtype, tol, grad_rel_l2 in checks:
+        dcfg = dataclasses.replace(
+            cfg, model=dataclasses.replace(cfg.model, compute_dtype=dtype))
+        outs = {}
+        for dev, state in (("cpu", cpu), ("cuda", card)):
+            grads, aux = joint_cadence_grads(
+                dcfg, state, rays_to_device(rays, dev), pixels.to(dev),
+                noise=RenderNoise(*(x.to(dev) for x in noise)))
+            outs[dev] = ({k: v.cpu() for k, v in aux.items()},
+                         [g.cpu() for k in ("prop", "nerf") for g in grads[k]])
+        (aux_cpu, g_cpu), (aux_card, g_card) = outs["cpu"], outs["cuda"]
+        for k in aux_cpu:
+            err = (aux_card[k] - aux_cpu[k]).abs().item()
+            ok = torch.allclose(aux_card[k], aux_cpu[k], **tol)
+            print(f"train card vs cpu [{dtype}] {k}: card {aux_card[k].item():.7g} "
+                  f"cpu {aux_cpu[k].item():.7g} abs_err={err:.3e} "
+                  f"{'ok' if ok else 'MISMATCH'}", flush=True)
+            if not ok:
+                _fail(f"train step: card and CPU disagree on {k} in {dtype}")
+        worst_abs = worst_rel = worst_frac = 0.0
+        for i, (a, b) in enumerate(zip(g_card, g_cpu)):
+            err, rel = (a - b).abs().max().item(), _rel_l2(a, b)
+            # largest |a - b| / (atol + rtol * |b|), for the record
+            frac = ((a - b).abs() / (tol["atol"] + tol["rtol"] * b.abs())).max().item()
+            worst_abs, worst_rel = max(worst_abs, err), max(worst_rel, rel)
+            worst_frac = max(worst_frac, frac)
+            if rel > grad_rel_l2:
+                print(f"train card vs cpu [{dtype}] grad leaf {i} "
+                      f"{tuple(b.shape)}: max_abs_err={err:.3e} "
+                      f"max|cpu|={b.abs().max().item():.3e} rel_l2={rel:.3e} "
+                      "MISMATCH", flush=True)
+                _fail(f"train step: card and CPU gradients disagree in {dtype}")
+        print(f"train card vs cpu [{dtype}] {len(g_cpu)} grad leaves: "
+              f"max_abs_err={worst_abs:.3e} max rel_l2={worst_rel:.3e} "
+              f"(rel_l2<={grad_rel_l2}) ok; largest entry's err/(atol+rtol*"
+              f"|cpu|) at rtol={tol['rtol']} atol={tol['atol']}: "
+              f"{worst_frac:.3f}", flush=True)
 
 
 def main() -> int:
@@ -200,8 +455,6 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(here))
-    import dataclasses
-
     import mipnerf360_torch
     from mipnerf360_torch.config import get_config
     from mipnerf360_torch.core.rays import rays_to_device, take_rays
@@ -229,6 +482,7 @@ def main() -> int:
 
     # Phase 3: each kernel against its plain version.
     k1 = check_k1(composite)
+    k2 = check_k2(composite)
 
     # Phase 4: full-width render of the held-out views.
     cfg = get_config("synthetic_quality")
@@ -244,16 +498,18 @@ def main() -> int:
     n_rays = test.n_rays
     n_chunks = -(-n_rays // RENDER_CHUNK)
 
-    composite.launches = 0
+    composite.launches = composite.bwd_launches = 0
     rgb, distance, acc = render_image(params, mcfg, test.rays,
                                       chunk=RENDER_CHUNK, device="cuda")
     torch.cuda.synchronize()
-    k1_launches = composite.launches
+    k1_render, k2_render = composite.launches, composite.bwd_launches
     print(f"render: {test.n_images} views {test.h}x{test.w}, {n_rays} rays, "
-          f"{n_chunks} chunks of {RENDER_CHUNK}; K1 launches {k1_launches} "
-          f"(expected {2 * n_chunks})", flush=True)
-    if k1_launches != 2 * n_chunks:
-        _fail(f"K1 launched {k1_launches} times, expected {2 * n_chunks}")
+          f"{n_chunks} chunks of {RENDER_CHUNK}; K1 launches {k1_render} "
+          f"(expected {2 * n_chunks}), K2 launches {k2_render} (expected 0)",
+          flush=True)
+    if (k1_render, k2_render) != (2 * n_chunks, 0):
+        _fail(f"render launched K1 {k1_render} and K2 {k2_render} times, "
+              f"expected {2 * n_chunks} and 0")
     shapes = (tuple(rgb.shape), tuple(distance.shape), tuple(acc.shape))
     if shapes != ((n_rays, 3), (n_rays,), (n_rays,)):
         _fail(f"render output shapes {shapes}")
@@ -272,9 +528,9 @@ def main() -> int:
           f"{n_rays / dt:.0f} rays/s; median of the next 5 calls "
           f"{med * 1e3:.1f} ms, {n_rays / med:.0f} rays/s; on {card}", flush=True)
     if profile_dir is not None:
-        profile_render(lambda: render_image(params, mcfg, test.rays,
-                                            chunk=RENDER_CHUNK, device="cuda"),
-                       profile_dir)
+        profile_call(lambda: render_image(params, mcfg, test.rays,
+                                          chunk=RENDER_CHUNK, device="cuda"),
+                     profile_dir, "render")
 
     # Phase 5: the card against the CPU on the whole path, first rays of the
     # test split, same params.
@@ -306,20 +562,25 @@ def main() -> int:
             if not ok:
                 _fail(f"card and CPU disagree on {k} in {dtype}")
 
-    record = {"kernels": [{
-        "name": "K1_composite_fwd",
-        "route": "cuda",
-        "source": "mipnerf360_torch/csrc/composite.cu",
-        "replaces": "mipnerf360_tpu/ops/pallas/composite.py:46",
-        "result": "ok",
-        "launches": k1_launches,
-        "max_abs_err": k1["max_abs_err"],
-        "ms": k1["ms"],
-        "plain_ms": k1["plain_ms"],
-        "bound_ms": k1["bound_ms"],
-        "bound_by": k1["bound_by"],
-        "library_ms": None,
-    }]}
+    # Phase 6 and 7: the train path at full width, then card against CPU.
+    k1_train, k2_train = drive_train(cfg, composite, card, profile_dir)
+    check_train_card_vs_cpu(cfg)
+
+    def entry(name, replaces, k, by_path):
+        return {"name": name, "route": "cuda",
+                "source": "mipnerf360_torch/csrc/composite.cu",
+                "replaces": replaces, "result": "ok",
+                "launches": sum(by_path.values()), "launches_by_path": by_path,
+                "max_abs_err": k["max_abs_err"], "ms": k["ms"],
+                "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+                "bound_by": k["bound_by"], "library_ms": None}
+
+    record = {"kernels": [
+        entry("K1_composite_fwd", "mipnerf360_tpu/ops/pallas/composite.py:46",
+              k1, {"render": k1_render, "train": k1_train}),
+        entry("K2_composite_bwd", "mipnerf360_tpu/ops/pallas/composite.py:59",
+              k2, {"render": k2_render, "train": k2_train}),
+    ]}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -7,7 +7,9 @@ The functions take params as the JAX package's nested tree —
 them with the same nesting. Where the JAX package threads a ``jax.random``
 key, the randomized branches here take explicit noise tensors (or draw from a
 ``torch.Generator``). Both composites go through ``ops.fused``: a CUDA tensor
-launches the Hopper kernel K1, a CPU tensor takes its plain version.
+launches the Hopper kernel K1 (and K2 in the backward), a CPU tensor takes
+its plain version. The forward functions run under autograd; only
+``render_image`` runs under ``torch.inference_mode``.
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ from typing import Any, Dict, NamedTuple, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..config import ModelConfig
 from ..core.encoding import integrated_pos_enc, viewdir_enc
@@ -133,8 +136,9 @@ def nerf_forward(params: Params, cfg: ModelConfig, rays: Rays, t_vals, weights,
                  randomized: bool, *, noise=None, generator=None):
     """NeRF level: resample -> encode -> trunk -> heads -> composite.
 
-    ``cfg.remat`` (recompute the tower in backward) changes nothing here: the
-    port's forward runs without autograd until the backward kernel exists.
+    With ``cfg.remat`` the tower (trunk and heads) runs under
+    ``torch.utils.checkpoint``, the port's ``jax.checkpoint``: its
+    activations are not kept for the backward but recomputed there.
     """
     new_t = fused.resample_along_rays(t_vals, weights, randomized,
                                       cfg.resample_padding, cfg.use_pallas,
@@ -142,12 +146,20 @@ def nerf_forward(params: Params, cfg: ModelConfig, rays: Rays, t_vals, weights,
                                       noise=noise, generator=generator)
     x = _encode(cfg, rays, new_t)
     dt = _compute_dtype(cfg)
-    nerf = params["nerf"]
-    feat = apply_mlp(nerf["trunk"], x, _trunk_activations(cfg), dt)
-    raw_density = apply_mlp(
-        nerf["density"], feat,
-        ["sigmoid" if cfg.density_head_sigmoid else "none"], dt)
-    raw_rgb = apply_mlp(nerf["rgb"], feat, ["sigmoid"], dt)
+
+    def tower(nerf, x):
+        feat = apply_mlp(nerf["trunk"], x, _trunk_activations(cfg), dt)
+        raw_density = apply_mlp(
+            nerf["density"], feat,
+            ["sigmoid" if cfg.density_head_sigmoid else "none"], dt)
+        raw_rgb = apply_mlp(nerf["rgb"], feat, ["sigmoid"], dt)
+        return raw_density, raw_rgb
+
+    if cfg.remat and torch.is_grad_enabled():
+        raw_density, raw_rgb = checkpoint(tower, params["nerf"], x,
+                                          use_reentrant=False)
+    else:
+        raw_density, raw_rgb = tower(params["nerf"], x)
 
     rgb = raw_rgb * (1.0 + 2.0 * cfg.rgb_padding) - cfg.rgb_padding
     density = _softplus(raw_density[..., 0] + cfg.density_bias)
@@ -255,7 +267,9 @@ class MipNeRF360(nn.Module):
             {k: _MLP(params["nerf"][k]) for k in ("trunk", "density", "rgb")})
 
     def params(self) -> Params:
-        """The parameters as the nested tree the functions take."""
+        """The parameters as the nested tree the functions take; its leaves
+        are this module's ``nn.Parameter``s, so a loss built from it reaches
+        them."""
         return {"prop": self.prop.tree(),
                 "nerf": {k: m.tree() for k, m in self.nerf.items()}}
 

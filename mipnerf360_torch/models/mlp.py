@@ -12,6 +12,11 @@ Matmuls run in a configurable compute dtype (bfloat16 by default) with float32
 products, as the JAX package's ``jnp.dot(..., preferred_element_type=f32)``:
 the bias is added in f32, each hidden pre-activation is cast to the compute
 dtype BEFORE its activation, and the final output is returned as f32.
+
+Gradients follow what ``jax.grad`` of the JAX package computes: the f32
+cotangent of each product is multiplied by the compute-dtype operand with f32
+accumulation, and dX and dW are rounded to the compute dtype (the cotangent
+of each ``.astype``) before they come back as f32.
 """
 from __future__ import annotations
 
@@ -47,8 +52,8 @@ def init_mlp(generator: torch.Generator, sizes: Sequence[int]):
                        for i in range(len(sizes) - 1)]}
 
 
-def _matmul_f32(x, w):
-    """[..., in] @ [in, out] with compute-dtype operands and an f32 product.
+def _mm_f32(a, b):
+    """a @ b for 2-D compute-dtype operands, accumulated and returned in f32.
 
     On CUDA, ``torch.mm(..., out_dtype=float32)`` accumulates in f32 and
     returns f32 without rounding to the operand dtype (a plain bf16 matmul
@@ -57,19 +62,81 @@ def _matmul_f32(x, w):
     dtype, are multiplied in f32: products of bf16 values are exact in f32,
     so only the summation order differs.
     """
+    if a.is_cuda:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return torch.mm(a.float(), b.float())
+
+
+def _split(g, dtype):
+    """An f32 tensor as hi + lo in ``dtype`` (hi = g rounded, lo = the rounded
+    rest): two compute-dtype GEMMs then carry g to ~16 mantissa bits, far
+    below the compute-dtype rounding of the result."""
+    hi = g.to(dtype)
+    return [hi, (g - hi.float()).to(dtype)]
+
+
+class _MatmulF32(torch.autograd.Function):
+    """:func:`_mm_f32` with the backward of ``jnp.dot(...,
+    preferred_element_type=f32)`` on compute-dtype operands.
+
+    ``torch.mm(..., out_dtype=)`` has no derivative, so the card needs this.
+    dX = g @ W^T and dW = X^T @ g, accumulated in f32 and rounded to the
+    operands' dtype. ``g_rounded`` says that the cotangent g already holds
+    compute-dtype values (a hidden layer, whose output is cast before its
+    activation): one compute-dtype GEMM is then exact up to summation order.
+    Otherwise (an MLP's last layer) g is true f32 and is split in hi + lo.
+    """
+
+    @staticmethod
+    def forward(ctx, x, w, g_rounded: bool):
+        ctx.save_for_backward(x, w)
+        ctx.g_rounded = g_rounded
+        return _mm_f32(x, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        parts = [g.to(x.dtype)] if ctx.g_rounded else _split(g, x.dtype)
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = _mm_f32(parts[0], w.t())
+            for p in parts[1:]:
+                dx += _mm_f32(p, w.t())
+            dx = dx.to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = _mm_f32(x.t(), parts[0])
+            for p in parts[1:]:
+                dw += _mm_f32(x.t(), p)
+            dw = dw.to(w.dtype)
+        return dx, dw, None
+
+
+def _matmul_f32(x, w, g_rounded: bool = False):
+    """[..., in] @ [in, out] with compute-dtype operands and an f32 product.
+
+    float32 operands take ``torch.mm``. Other compute dtypes take
+    :func:`_mm_f32`: on the CPU with ordinary autograd, on CUDA through
+    :class:`_MatmulF32`, whose backward is written out (``g_rounded`` as
+    there).
+    """
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
     if x.dtype == torch.float32:
         y = torch.mm(x2, w)
     elif x.is_cuda:
-        y = torch.mm(x2, w, out_dtype=torch.float32)
+        y = _MatmulF32.apply(x2, w, g_rounded)
     else:
-        y = torch.mm(x2.float(), w.float())
+        y = _mm_f32(x2, w)
     return y.reshape(*lead, w.shape[-1])
 
 
-def apply_linear(layer, x, compute_dtype=torch.bfloat16):
-    y = _matmul_f32(x.to(compute_dtype), layer["w"].to(compute_dtype))
+def apply_linear(layer, x, compute_dtype=torch.bfloat16, *,
+                 g_rounded: bool = False):
+    """``x @ w + b`` with compute-dtype operands and an f32 result;
+    ``g_rounded``: the caller casts the result to ``compute_dtype``, so its
+    cotangent holds compute-dtype values (see :class:`_MatmulF32`)."""
+    y = _matmul_f32(x.to(compute_dtype), layer["w"].to(compute_dtype),
+                    g_rounded)
     return y + layer["b"]
 
 
@@ -80,8 +147,9 @@ def apply_mlp(params, x, activations: Sequence[str],
     if len(layers) != len(activations):
         raise ValueError(f"{len(layers)} layers but {len(activations)} activations")
     for i, (layer, act) in enumerate(zip(layers, activations)):
-        y = apply_linear(layer, x, compute_dtype)
-        if i + 1 < len(layers):
+        hidden = i + 1 < len(layers)
+        y = apply_linear(layer, x, compute_dtype, g_rounded=hidden)
+        if hidden:
             y = y.to(compute_dtype)
         x = ACTIVATIONS[act](y)
     return x.to(torch.float32)

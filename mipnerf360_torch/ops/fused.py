@@ -20,7 +20,8 @@ def _check_mode(mode: str) -> None:
 
 
 def compute_alpha_weights(density, t_vals, dirs, mode: str = "auto"):
-    """Density -> compositing weights (K1 on CUDA tensors)."""
+    """Density -> compositing weights (K1 on CUDA tensors, and K2 in the
+    backward when the density requires grad)."""
     _check_mode(mode)
     if mode == "off" and density.is_cuda:
         raise ValueError(

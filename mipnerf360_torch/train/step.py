@@ -1,0 +1,178 @@
+"""The train step, both update cadences (counterpart of
+``mipnerf360_tpu/train/step.py``).
+
+- ``"joint"`` (default): one fused update per step: photometric + distortion
+  into the NeRF subtree, distillation into the proposal subtree, one forward
+  of each level.
+- ``"reference"``: the reference's 2+1 structure, ``prop_inner_steps``
+  proposal updates then one NeRF update, the scheduler advanced once per
+  update. Each phase updates only the subtree whose loss it computed.
+
+Loss split:
+  prop phase:  L_prop(stop_grad(nerf t, w) -> bounds, prop w)
+  nerf phase:  (30 - PSNR) + dist_loss_weight * distortion
+
+Where the JAX package splits its PRNG key, a step here takes explicit
+``noise`` (the uniforms of each forward, as :class:`RenderNoise`) or, when
+it is None, draws them from ``state.generator``. The step updates the
+state's params and moments in place and returns the state with its counters
+advanced, and the aux dict of 0-d tensors (detached).
+"""
+from __future__ import annotations
+
+import functools
+from typing import Dict, Optional, Sequence, Tuple
+
+import torch
+
+from ..config import Config
+from ..core.rays import Rays
+from ..losses.distillation import distillation_loss
+from ..losses.distortion import distortion_loss
+from ..losses.photometric import photometric_loss
+from ..models.mipnerf360 import (RenderNoise, map_params, nerf_forward,
+                                 prop_forward)
+from .schedule import log_lerp_lr
+from .state import TrainState, apply_updates_subtree, leaves
+
+Aux = Dict[str, torch.Tensor]
+
+
+def _lr(train_cfg, count):
+    horizon = train_cfg.lr_max_steps or train_cfg.max_steps
+    return log_lerp_lr(
+        count, train_cfg.lr_init, train_cfg.lr_final, horizon,
+        train_cfg.lr_delay_steps, train_cfg.lr_delay_mult)
+
+
+def _forward_both(params, model_cfg, rays, noise: Optional[RenderNoise],
+                  generator, randomized):
+    n_prop, n_nerf = (None, None) if noise is None else noise
+    t_prop, w_prop = prop_forward(params, model_cfg, rays, randomized,
+                                  noise=n_prop, generator=generator)
+    out = nerf_forward(params, model_cfg, rays, t_prop, w_prop, randomized,
+                       noise=n_nerf, generator=generator)
+    return t_prop, w_prop, out
+
+
+def _nerf_losses(train_cfg, out, pixels):
+    loss_nerf, psnr = photometric_loss(out["rgb"], pixels)
+    loss_dist = distortion_loss(out["s_vals"], out["weights"],
+                                train_cfg.dist_loss_reduction)
+    return loss_nerf + train_cfg.dist_loss_weight * loss_dist, {
+        "psnr": psnr, "loss_nerf": loss_nerf, "loss_dist": loss_dist}
+
+
+def _prop_phase(state: TrainState, model_cfg, train_cfg, rays,
+                noise: Optional[RenderNoise], sched_count, randomized,
+                data_shards=1):
+    """One proposal-distillation update; the NeRF subtree is held fixed."""
+    p = {"prop": state.params["prop"],
+         "nerf": map_params(torch.Tensor.detach, state.params["nerf"])}
+    t_prop, w_prop, out = _forward_both(p, model_cfg, rays, noise,
+                                        state.generator, randomized)
+    loss = distillation_loss(out["t_vals"].detach(), out["weights"].detach(),
+                             t_prop, w_prop,
+                             collapsed=train_cfg.quirk_collapsed_bounds,
+                             data_shards=data_shards)
+    grads = torch.autograd.grad(loss, leaves(state.params["prop"]))
+    apply_updates_subtree(state.params["prop"], grads, state.opt_state["prop"],
+                          _lr(train_cfg, sched_count), train_cfg.weight_decay)
+    return loss.detach()
+
+
+def _nerf_phase(state: TrainState, model_cfg, train_cfg, rays, pixels,
+                noise: Optional[RenderNoise], sched_count, randomized) -> Aux:
+    """One photometric + distortion update; the proposal subtree is held
+    fixed, and its samples and weights are under stop-gradient."""
+    p = {"prop": map_params(torch.Tensor.detach, state.params["prop"]),
+         "nerf": state.params["nerf"]}
+    _, _, out = _forward_both(p, model_cfg, rays, noise, state.generator,
+                              randomized)
+    loss, aux = _nerf_losses(train_cfg, out, pixels)
+    grads = torch.autograd.grad(loss, leaves(state.params["nerf"]))
+    lr = _lr(train_cfg, sched_count)
+    apply_updates_subtree(state.params["nerf"], grads, state.opt_state["nerf"],
+                          lr, train_cfg.weight_decay)
+    aux = {k: v.detach() for k, v in aux.items()}
+    aux["loss"] = loss.detach()
+    aux["lr"] = lr
+    return aux
+
+
+def reference_cadence_step(cfg: Config, state: TrainState, rays: Rays, pixels,
+                           *, noise: Optional[Sequence[RenderNoise]] = None,
+                           data_shards: int = 1) -> Tuple[TrainState, Aux]:
+    """``prop_inner_steps`` proposal updates + 1 NeRF update; the scheduler
+    advances once per update. ``noise``, when given, holds one
+    :class:`RenderNoise` per update, in order."""
+    randomized = cfg.train.randomized
+    n_prop = cfg.train.prop_inner_steps
+    if n_prop < 1:
+        raise ValueError(
+            "train.cadence='reference' is the 2+1 update structure "
+            "(train.py:51-82) and needs train.prop_inner_steps >= 1; use "
+            "cadence='joint' to train without separate proposal updates "
+            f"(got prop_inner_steps={n_prop})")
+    if noise is not None and len(noise) != n_prop + 1:
+        raise ValueError(f"noise must hold {n_prop + 1} RenderNoise, "
+                         f"got {len(noise)}")
+    phase_noise = list(noise) if noise is not None else [None] * (n_prop + 1)
+    sched = state.sched_count
+    loss_prop = None
+    for i in range(n_prop):
+        loss_prop = _prop_phase(state, cfg.model, cfg.train, rays,
+                                phase_noise[i], sched, randomized, data_shards)
+        sched += 1
+    aux = _nerf_phase(state, cfg.model, cfg.train, rays, pixels,
+                      phase_noise[-1], sched, randomized)
+    aux["loss_prop"] = loss_prop
+    state.step += 1
+    state.sched_count = sched + 1
+    return state, aux
+
+
+def joint_cadence_grads(cfg: Config, state: TrainState, rays: Rays, pixels,
+                        *, noise: Optional[RenderNoise] = None,
+                        data_shards: int = 1) -> Tuple[Dict[str, list], Aux]:
+    """The joint cadence's forward and backward without the update: the
+    gradients, as ``{"prop": [...], "nerf": [...]}`` in :func:`leaves`
+    order, and the aux losses."""
+    params = state.params
+    t_prop, w_prop, out = _forward_both(params, cfg.model, rays, noise,
+                                        state.generator, cfg.train.randomized)
+    loss, aux = _nerf_losses(cfg.train, out, pixels)
+    loss_prop = distillation_loss(
+        out["t_vals"].detach(), out["weights"].detach(), t_prop, w_prop,
+        collapsed=cfg.train.quirk_collapsed_bounds, data_shards=data_shards)
+    loss = loss + loss_prop
+    prop, nerf = leaves(params["prop"]), leaves(params["nerf"])
+    grads = torch.autograd.grad(loss, prop + nerf)
+    aux = {k: v.detach() for k, v in aux.items()}
+    aux["loss_prop"] = loss_prop.detach()
+    aux["loss"] = loss.detach()
+    return {"prop": list(grads[:len(prop)]), "nerf": list(grads[len(prop):])}, aux
+
+
+def joint_cadence_step(cfg: Config, state: TrainState, rays: Rays, pixels, *,
+                       noise: Optional[RenderNoise] = None,
+                       data_shards: int = 1) -> Tuple[TrainState, Aux]:
+    """One fused update of both subtrees (the paper's cadence)."""
+    grads, aux = joint_cadence_grads(cfg, state, rays, pixels, noise=noise,
+                                     data_shards=data_shards)
+    lr = _lr(cfg.train, state.sched_count)
+    for k in ("prop", "nerf"):
+        apply_updates_subtree(state.params[k], grads[k], state.opt_state[k],
+                              lr, cfg.train.weight_decay)
+    aux["lr"] = lr
+    state.step += 1
+    state.sched_count += 1
+    return state, aux
+
+
+def make_train_step(cfg: Config, data_shards: int = 1):
+    """The step function of the configured cadence:
+    ``step(state, rays, pixels, *, noise=None) -> (state, aux)``."""
+    fn = (reference_cadence_step if cfg.train.cadence == "reference"
+          else joint_cadence_step)
+    return functools.partial(fn, cfg, data_shards=data_shards)

@@ -3,10 +3,13 @@
 On the CPU: the port's plain version of K1 against the JAX package's Pallas
 kernel run in interpret mode (as tests/test_pallas_ops.py runs it), at the
 Pallas-vs-core tolerance rtol 1e-5 / atol 1e-6; its autograd gradient
-against ``jax.grad`` through the Pallas custom VJP, at rtol 1e-4 / atol 1e-5
-(the formula the backward kernel K2 must meet); and the compositing around it.
-The kernel itself is held against the plain version on the card by
-tests/test_torch_cuda.py and chip_smoke.py.
+against ``jax.grad`` through the Pallas custom VJP, at rtol 1e-4 / atol 1e-5;
+the plain version of K2 (the backward) against the same VJP and against
+autograd of the plain K1, at that tolerance; the autograd Function that
+launches K1 and K2 on the card, with the launches replaced by the plain
+versions; and the compositing around it. The kernels themselves are held
+against the plain versions on the card by tests/test_torch_cuda.py and
+chip_smoke.py.
 """
 from importlib import import_module
 
@@ -100,3 +103,62 @@ def test_cpu_dispatch_takes_plain_version_without_counting():
     assert composite.launches == before
     with pytest.raises(ValueError):
         fused.compute_alpha_weights(density, t_vals, dirs, "maybe")
+
+
+def _pallas_vjp(density, t_vals, dirs, g):
+    """d_density from ``jax.vjp`` of the Pallas kernel, in interpret mode."""
+    with pltpu.force_tpu_interpret_mode():
+        _, vjp = jax.vjp(lambda d: pallas_composite(
+            d, jnp.asarray(t_vals), jnp.asarray(dirs)), jnp.asarray(density))
+        return np.asarray(vjp(jnp.asarray(g))[0])
+
+
+@pytest.mark.parametrize("b,n,density_range", [
+    (64, 16, (0.0, 3.0)), (40, 65, (0.0, 3.0)),
+    (64, 16, (0.0, 1e-4)),            # near-zero density, dd < 1e-2
+    (64, 16, (50.0, 500.0))])         # opaque rays, T underflows to 0
+def test_plain_k2_matches_pallas_vjp(b, n, density_range):
+    density, t_vals, dirs = _inputs(b, n, seed=7, density_range=density_range)
+    g = np.random.default_rng(8).normal(size=(b, n)).astype(np.float32)
+    want = _pallas_vjp(density, t_vals, dirs, g)
+    got = composite.plain_composite_weights_bwd(*map(_t, (density, t_vals, dirs, g)))
+    assert torch.isfinite(got).all()
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("density_range", [(0.0, 3.0), (0.0, 1e-4), (50.0, 500.0)])
+def test_plain_k2_matches_autograd_of_plain_k1(density_range):
+    density, t_vals, dirs = map(_t, _inputs(48, 33, seed=9,
+                                            density_range=density_range))
+    g = _t(np.random.default_rng(10).normal(size=(48, 33)))
+    d = density.clone().requires_grad_()
+    w = composite.plain_composite_weights(d, t_vals, dirs)
+    (want,) = torch.autograd.grad(w, [d], g)
+    got = composite.plain_composite_weights_bwd(density, t_vals, dirs, g)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+
+
+def test_function_routes_backward_through_k2(monkeypatch):
+    """The Function the card uses, with K1 and K2 replaced by their plain
+    versions: it saves the inputs, makes the cotangent contiguous, gives
+    t_vals and dirs no gradient, and matches plain autograd."""
+    calls = []
+
+    def fake_bwd(density, t_vals, dirs, g):
+        calls.append(g.is_contiguous())
+        return composite.plain_composite_weights_bwd(density, t_vals, dirs, g)
+
+    monkeypatch.setattr(composite, "_launch", composite.plain_composite_weights)
+    monkeypatch.setattr(composite, "_launch_bwd", fake_bwd)
+    density, t_vals, dirs = map(_t, _inputs(32, 16, seed=11))
+    d = density.clone().requires_grad_()
+    t = t_vals.clone().requires_grad_()
+    w = composite.CompositeWeights.apply(d, t, dirs)
+    # an expanded, non-contiguous cotangent, as a broadcast loss gives
+    g = _t(np.random.default_rng(12).normal(size=(1, 16))).expand(32, 16)
+    got_d, got_t = torch.autograd.grad(w, [d, t], g, allow_unused=True)
+    assert calls == [True] and got_t is None
+    d2 = density.clone().requires_grad_()
+    (want,) = torch.autograd.grad(
+        composite.plain_composite_weights(d2, t_vals, dirs), [d2], g)
+    torch.testing.assert_close(got_d, want, rtol=1e-4, atol=1e-5)

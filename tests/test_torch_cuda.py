@@ -1,6 +1,7 @@
-"""The port on the card: kernel K1 against its plain version, and the render
-path's launches and results against the CPU. Every test here needs an
-NVIDIA card and the CUDA toolkit, and skips without them.
+"""The port on the card: kernels K1 and K2 against their plain versions, the
+render path's launches and results against the CPU, and a small train step
+on the card against the CPU. Every test here needs an NVIDIA card and the
+CUDA toolkit, and skips without them.
 
 This file imports no JAX, so it runs on a machine with a card and without
 JAX; tests/conftest.py imports JAX, hence ``--noconftest`` (see README).
@@ -11,16 +12,20 @@ import numpy as np
 import pytest
 import torch
 
-from mipnerf360_torch.config import ModelConfig
+from mipnerf360_torch.config import Config, ModelConfig, TrainConfig
 from mipnerf360_torch.core.rays import dummy_rays, rays_to_device
 from mipnerf360_torch.models import mipnerf360 as tm
 from mipnerf360_torch.models.mlp import apply_mlp, init_mlp
 from mipnerf360_torch.ops import composite
+from mipnerf360_torch.train import init_train_state, joint_cadence_grads
+from mipnerf360_torch.train.state import make_train_state
 
 pytestmark = pytest.mark.cuda
 
-# Kernel vs plain version: the JAX package's Pallas-vs-core tolerance.
+# Kernel vs plain version: the JAX package's Pallas-vs-core tolerances,
+# forward and backward (tests/test_pallas_ops.py).
 K1_TOL = dict(rtol=1e-5, atol=1e-6)
+K2_TOL = dict(rtol=1e-4, atol=1e-5)
 # Whole path, float32 with TF32 off: only summation orders differ.
 F32_TOL = dict(rtol=1e-4, atol=1e-4)
 SMALL = ModelConfig(num_samples=16, hidden_proposal=32, hidden_nerf=64,
@@ -43,9 +48,11 @@ def _inputs(b, n, seed=0, density_range=(0.0, 3.0)):
     return [torch.from_numpy(x) for x in (density, t_vals, dirs)]
 
 
-@pytest.mark.parametrize("b,n,density_range", [
-    (4096, 64, (0.0, 3.0)), (300, 16, (0.0, 3.0)), (1, 65, (0.0, 3.0)),
-    (1024, 64, (0.0, 1e-4)), (1024, 64, (50.0, 500.0))])
+SHAPES = [(4096, 64, (0.0, 3.0)), (300, 16, (0.0, 3.0)), (1, 65, (0.0, 3.0)),
+          (1024, 64, (0.0, 1e-4)), (1024, 64, (50.0, 500.0))]
+
+
+@pytest.mark.parametrize("b,n,density_range", SHAPES)
 def test_k1_matches_plain_version(cuda, b, n, density_range):
     args = [x.to(cuda) for x in _inputs(b, n, 7, density_range)]
     before = composite.launches
@@ -54,10 +61,32 @@ def test_k1_matches_plain_version(cuda, b, n, density_range):
     torch.testing.assert_close(w, composite.plain_composite_weights(*args), **K1_TOL)
 
 
+@pytest.mark.parametrize("b,n,density_range", SHAPES)
+def test_k2_matches_plain_version(cuda, b, n, density_range):
+    args = [x.to(cuda) for x in _inputs(b, n, 8, density_range)]
+    g = torch.from_numpy(np.random.default_rng(9).normal(
+        size=(b, n)).astype(np.float32)).to(cuda)
+    before = composite.bwd_launches
+    got = composite._launch_bwd(*args, g)
+    assert composite.bwd_launches == before + 1
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(
+        got, composite.plain_composite_weights_bwd(*args, g), **K2_TOL)
+
+
 def test_k1_refuses_what_it_cannot_take(cuda):
     density, t_vals, dirs = [x.to(cuda) for x in _inputs(8, 16)]
-    with pytest.raises(NotImplementedError, match="K2 not ported"):
-        composite.composite_weights(density.clone().requires_grad_(), t_vals, dirs)
+    # a density that requires grad goes through K1, then K2 in the backward
+    d = density.clone().requires_grad_()
+    k1, k2 = composite.launches, composite.bwd_launches
+    w = composite.composite_weights(d, t_vals, dirs)
+    g = torch.randn(1, 16, device=cuda).expand(8, 16)  # expanded cotangent
+    (got,) = torch.autograd.grad(w, [d], g)
+    assert (composite.launches - k1, composite.bwd_launches - k2) == (1, 1)
+    torch.testing.assert_close(
+        got, composite.plain_composite_weights_bwd(density, t_vals, dirs,
+                                                   g.contiguous()), **K2_TOL)
     with pytest.raises(TypeError):
         composite.composite_weights(density.double(), t_vals, dirs)
     with pytest.raises(ValueError):
@@ -84,6 +113,32 @@ def test_apply_mlp_on_card_matches_cpu(cuda, dtype):
     torch.testing.assert_close(got.cpu(), want, **tol)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_apply_mlp_gradients_on_card_match_cpu(cuda, dtype):
+    """The card's GEMM backward (bf16: the ``torch.mm(out_dtype=)`` Function)
+    against the CPU's autograd. float32: rtol 1e-4 / atol 1e-4 on every
+    entry. bfloat16: dX and dW are rounded to bf16 and another summation
+    order flips some roundings, so each leaf is held by its relative L2
+    error, at 2e-2."""
+    params = init_mlp(torch.Generator().manual_seed(1), [58, 256, 256, 4])
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(rng.normal(size=(512, 58)).astype(np.float32))
+    r = torch.from_numpy(rng.normal(size=(512, 4)).astype(np.float32))
+    acts = ["relu", "relu", "none"]
+    grads = {}
+    for dev in ("cpu", cuda):
+        p = tm.map_params(lambda t: t.to(dev).requires_grad_(), params)
+        xd = x.to(dev).requires_grad_()
+        out = apply_mlp(p, xd, acts, getattr(torch, dtype))
+        leaves = [xd] + [l[k] for l in p["layers"] for k in ("w", "b")]
+        grads[str(dev)] = torch.autograd.grad((out * r.to(dev)).sum(), leaves)
+    for a, b in zip(grads["cuda"], grads["cpu"]):
+        if dtype == "float32":
+            torch.testing.assert_close(a.cpu(), b, **F32_TOL)
+        else:
+            assert ((a.cpu() - b).norm() / b.norm()).item() < 2e-2
+
+
 def test_render_image_launches_k1_twice_per_chunk_and_matches_cpu(cuda):
     params = tm.init_model(SMALL, torch.Generator().manual_seed(1))
     rays = dummy_rays(300, seed=1)
@@ -105,3 +160,32 @@ def test_module_forward_on_card(cuda):
     assert out["rgb"].shape == (64, 3) and torch.isfinite(out["rgb"]).all()
     rgb, _, _ = model.render_image(dummy_rays(64), chunk=64)
     torch.testing.assert_close(rgb, out["rgb"], rtol=1e-6, atol=1e-6)
+
+
+def test_train_step_on_card_matches_cpu(cuda):
+    """One joint step's gradients and losses, float32 with TF32 off: only
+    summation orders differ (rtol 1e-4 / atol 1e-4, as for the render); both
+    composites launch K1 and K2 once each."""
+    cfg = Config(model=SMALL, train=TrainConfig(batch_size=64))
+    cpu = init_train_state(cfg.model, cfg.train, device="cpu")
+    card = make_train_state(cpu.params, device=cuda,
+                            generator=torch.Generator(cuda))
+    rays = dummy_rays(64, seed=3)
+    pixels = torch.from_numpy(np.random.default_rng(3).uniform(
+        size=(64, 3)).astype(np.float32))
+    noise = tm.RenderNoise(*(torch.from_numpy(np.random.default_rng(s).uniform(
+        size=(64, 17)).astype(np.float32)) * m for s, m in ((4, 1.0), (5, 1 / 18))))
+    out = {}
+    for dev, state in (("cpu", cpu), ("cuda", card)):
+        k1, k2 = composite.launches, composite.bwd_launches
+        out[dev] = joint_cadence_grads(
+            cfg, state, rays_to_device(rays, dev), pixels.to(dev),
+            noise=tm.RenderNoise(*(n.to(dev) for n in noise)))
+        launched = (composite.launches - k1, composite.bwd_launches - k2)
+        assert launched == ((0, 0) if dev == "cpu" else (2, 2))
+    (g_cpu, aux_cpu), (g_card, aux_card) = out["cpu"], out["cuda"]
+    for k in aux_cpu:
+        torch.testing.assert_close(aux_card[k].cpu(), aux_cpu[k], **F32_TOL)
+    for k in ("prop", "nerf"):
+        for a, b in zip(g_card[k], g_cpu[k]):
+            torch.testing.assert_close(a.cpu(), b, **F32_TOL)

@@ -16,10 +16,11 @@ from pathlib import Path
 import pytest
 import torch
 
-from mipnerf360_torch.config import ModelConfig
+from mipnerf360_torch.config import ModelConfig, TrainConfig
 from mipnerf360_torch.core.rays import dummy_rays
 from mipnerf360_torch.models import mipnerf360 as tm
 from mipnerf360_torch.ops import _build, composite, fused
+from mipnerf360_torch.train import init_train_state
 
 torch.set_num_threads(1)
 
@@ -61,6 +62,21 @@ def test_render_image_needs_the_card_unless_asked_for_cpu():
     rgb, distance, acc = tm.render_image(params, SMALL, dummy_rays(4), chunk=4,
                                          device="cpu")
     assert rgb.shape == (4, 3) and distance.shape == acc.shape == (4,)
+
+
+def test_init_train_state_needs_the_card_unless_asked_for_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        init_train_state(SMALL, TrainConfig())
+    state = init_train_state(SMALL, TrainConfig(), device="cpu")
+    assert (state.step, state.sched_count) == (0, 0)
+    assert state.generator.device.type == "cpu"
+    w = state.params["nerf"]["trunk"]["layers"][0]["w"]
+    assert w.device.type == "cpu" and w.requires_grad and w.is_leaf
+    again = init_train_state(SMALL, TrainConfig(), device="cpu")
+    torch.testing.assert_close(again.params["nerf"]["trunk"]["layers"][0]["w"],
+                               w, rtol=0, atol=0)
 
 
 def test_build_without_nvcc_raises(tmp_path, monkeypatch):

@@ -238,3 +238,43 @@ def test_synthetic_quality_test_split_size():
     assert (data.n_images, data.h, data.w, data.n_rays) == (7, 64, 64, 28672)
     with pytest.raises(NotImplementedError):
         synthetic_dataset(get_config("synthetic_quality").data, "render")
+
+
+@pytest.mark.parametrize("g_rounded", [True, False])
+def test_card_matmul_backward_matches_cpu_autograd(g_rounded):
+    """The card's bf16 GEMM Function, run here on CPU bf16 tensors, against
+    the CPU branch's autograd (the JAX package's semantics): dX and dW are
+    products with f32 accumulation rounded to bf16. With a cotangent that
+    holds bf16 values (a hidden layer) one GEMM gives them; with a true f32
+    cotangent the hi + lo split does: it carries g to ~2^-16 relative, so an
+    entry may differ by one bf16 ulp (2^-8 relative) and, where the sum
+    cancels to near zero, by ~2^-16 of the output's scale."""
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(rng.normal(size=(64, 40)).astype(np.float32))
+    w = torch.from_numpy(rng.normal(size=(40, 24)).astype(np.float32))
+    g = torch.from_numpy(rng.normal(size=(64, 24)).astype(np.float32))
+    if g_rounded:
+        g = g.bfloat16().float()
+    grads = []
+    for card in (True, False):
+        xb = x.bfloat16().requires_grad_()
+        wb = w.bfloat16().requires_grad_()
+        y = (tmlp._MatmulF32.apply(xb, wb, g_rounded) if card
+             else tmlp._mm_f32(xb, wb))
+        assert y.dtype == torch.float32
+        grads.append(torch.autograd.grad(y, [xb, wb], g))
+    for got, want in zip(*grads):
+        assert got.dtype == want.dtype == torch.bfloat16
+        tol = (dict(rtol=0, atol=0) if g_rounded else
+               dict(rtol=8e-3, atol=2.0**-16 * want.float().abs().max().item()))
+        torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+def test_module_params_are_its_parameters_and_get_gradients():
+    cfg = ModelConfig(**SMALL)
+    mod = tm.MipNeRF360(cfg, generator=torch.Generator().manual_seed(5))
+    tree_leaves = jax.tree.leaves(mod.params())
+    assert {id(p) for p in tree_leaves} == {id(p) for p in mod.parameters()}
+    out = mod(rays_to_device(dummy_rays(16), "cpu"))
+    (out["rgb"].sum() + out["w_prop"].sum()).backward()
+    assert all(p.grad is not None for p in mod.parameters())
