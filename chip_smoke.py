@@ -16,15 +16,25 @@ read just after. The card is checked against the CPU on both paths. Any
 failure exits non-zero. It needs one CUDA device, and refuses to run without
 one or without the package beside it.
 
-Output, one line per phase; the line before the last is the per-kernel JSON
-record and the last line is ``{"ok": true, "device": {...}}``. With
-``--profile DIR`` it also profiles one warm render and one warm train step
-and writes their traces and kernel tables to DIR.
+Each kernel is timed with its inputs hot in L2 (as the main path leaves
+them), cold in L2 (a 128 MiB write between calls, its own time taken out),
+and with inputs that are not 16-byte aligned (no 16-byte accesses), beside the
+floor of the timing harness (a one-element ``zero_()``), its byte bound and
+its plain version.
+
+Each kernel's register, spill and SASS instruction counts are printed after
+the build. Output, one line per phase; the line before the last is the
+per-kernel JSON record and the last line is ``{"ok": true, "device":
+{...}}``. With
+``--profile DIR`` it also profiles one warm render and one warm train step,
+writes their traces and kernel tables to DIR, and reads K1's and K2's
+per-launch device time in the train step from the trace.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -55,17 +65,33 @@ K1_RTOL, K1_ATOL = 1e-5, 1e-6
 # sum of g*w is taken in another order (reverse warp scan vs flipped cumsum).
 K2_RTOL, K2_ATOL = 1e-4, 1e-5
 
-# The five shapes each composite kernel is held at: the train batch (and
-# render chunk), ragged B with small N, one ray with N not a multiple of 32,
-# near-zero density (dd < 1e-2, the expm1 region) and opaque rays (T
-# underflows to 0).
+# The shapes each composite kernel is held at: (label, B, N, density range,
+# storage offset of every input in floats). The train batch (and render
+# chunk), ragged B with small N, one ray with N not a multiple of 4,
+# near-zero density (dd < 1e-2, the expm1 region), opaque rays (T underflows
+# to 0); then the edges of the kernels' tiles: one ray past a whole number of
+# 16-ray tiles, rows that are not 16-byte multiples (N = 1, 3), the longest
+# ray that one register chunk holds (N = 128), rays of 2 and 40 chunks of
+# 128 samples (N = 256, 5000), and inputs 4 bytes into a larger buffer, so
+# that no row is 16-byte aligned.
 KERNEL_CASES = [
-    ("train batch / render chunk", 4096, 64, (0.0, 3.0)),
-    ("ragged B, small N", 300, 16, (0.0, 3.0)),
-    ("one ray, N=65", 1, 65, (0.0, 3.0)),
-    ("near-zero density (dd < 1e-2)", 1024, 64, (0.0, 1e-4)),
-    ("large density", 1024, 64, (50.0, 500.0)),
+    ("train batch / render chunk", 4096, 64, (0.0, 3.0), 0),
+    ("ragged B, small N", 300, 16, (0.0, 3.0), 0),
+    ("one ray, N=65", 1, 65, (0.0, 3.0), 0),
+    ("near-zero density (dd < 1e-2)", 1024, 64, (0.0, 1e-4), 0),
+    ("large density", 1024, 64, (50.0, 500.0), 0),
+    ("one ray past whole tiles", 4097, 64, (0.0, 3.0), 0),
+    ("N=1", 300, 1, (0.0, 3.0), 0),
+    ("N=3", 300, 3, (0.0, 3.0), 0),
+    ("N=128, one whole chunk", 1024, 128, (0.0, 3.0), 0),
+    ("N=256, two chunks", 512, 256, (0.0, 3.0), 0),
+    ("N=5000, 40 chunks", 3, 5000, (0.0, 1.0), 0),
+    ("4-byte storage offset", 4096, 64, (0.0, 3.0), 1),
+    ("4-byte storage offset, N=3", 300, 3, (0.0, 3.0), 1),
 ]
+# Cold-L2 timing: this many bytes are written between calls, more than twice
+# the 50 MB L2.
+FLUSH_BYTES = 128 * 2**20
 
 
 def _fail(msg: str) -> None:
@@ -80,10 +106,9 @@ def _card_line() -> str:
     return out.strip().splitlines()[0]
 
 
-def _device_ms(fn, calls: int = 50, reps: int = 21) -> float:
-    """Median device time of one ``fn()`` call, in ms: ``calls`` calls are
-    captured into one CUDA graph, so host overhead is left out, and the graph
-    is replayed ``reps`` times between CUDA events."""
+def _graph(fn, calls: int):
+    """``calls`` calls of ``fn`` captured into one CUDA graph, after three
+    warm calls, so that replaying it leaves host overhead out."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -94,30 +119,130 @@ def _device_ms(fn, calls: int = 50, reps: int = 21) -> float:
     with torch.cuda.graph(graph):
         for _ in range(calls):
             fn()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        graph.replay()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / calls)
-    return statistics.median(times)
+    return graph
 
 
-def _k1_inputs(b: int, n: int, density_range, seed: int):
+def _replay_ms(graph, calls: int) -> float:
+    """Device ms per call of one replay of ``graph``, between CUDA events."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / calls
+
+
+def _device_ms(fn, calls: int = 50, reps: int = 21) -> float:
+    """Median device time of one ``fn()`` call, in ms, over ``reps`` replays
+    of a graph of ``calls`` calls."""
+    graph = _graph(fn, calls)
+    return statistics.median(_replay_ms(graph, calls) for _ in range(reps))
+
+
+def _on_card(x: np.ndarray, offset: int = 0) -> torch.Tensor:
+    """``x`` on the card; with ``offset``, as a contiguous view that many
+    floats into a larger buffer."""
+    buf = torch.empty(x.size + offset, device="cuda")
+    view = buf[offset:].view(x.shape)
+    view.copy_(torch.from_numpy(x))
+    return view
+
+
+def _k1_inputs(b: int, n: int, density_range, seed: int, offset: int = 0):
     rng = np.random.default_rng(seed)
     density = rng.uniform(*density_range, (b, n)).astype(np.float32)
     t_vals = np.sort(rng.uniform(0.1, 6.0, (b, n + 1)).astype(np.float32), -1)
     dirs = rng.normal(size=(b, 3)).astype(np.float32)
-    return [torch.from_numpy(x).cuda() for x in (density, t_vals, dirs)]
+    return [_on_card(x, offset) for x in (density, t_vals, dirs)]
+
+
+def _cotangent(b: int, n: int, seed: int, offset: int = 0):
+    return _on_card(np.random.default_rng(seed).normal(
+        size=(b, n)).astype(np.float32), offset)
+
+
+def _cold_ms(fn, flush, calls: int = 50, reps: int = 21) -> tuple:
+    """Device ms of ``fn`` with its inputs cold in L2: (median, first and
+    third quartile, ms of the flush alone). One graph runs ``flush`` (a write
+    larger than L2) before each call of ``fn``, another the flush alone;
+    their replays alternate, and each pair's difference is one reading, so
+    that drift in the flush's time cancels within the pair."""
+    both = _graph(lambda: (flush(), fn()), calls)
+    alone = _graph(flush, calls)
+    diffs, flush_ms = [], []
+    for _ in range(reps):
+        b, a = _replay_ms(both, calls), _replay_ms(alone, calls)
+        diffs.append(b - a)
+        flush_ms.append(a)
+    q1, med, q3 = statistics.quantiles(diffs, n=4)
+    return med, (q1, q3), statistics.median(flush_ms)
 
 
 def _bound_ms(nbytes: int, flops: int):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / F32_FLOPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _kernel_name(mangled: str) -> str:
+    """``composite_fwd_regs<16,true>`` from a kernel's mangled name."""
+    m = re.search(r"(composite_[a-z]+_[a-z]+)(I((?:L[ib]\d+E)+)E)?", mangled)
+    if not m:
+        return mangled
+    if not m.group(3):
+        return m.group(1)
+    return m.group(1) + "<" + ",".join(
+        v if t == "i" else ("false", "true")[int(v)]
+        for t, v in re.findall(r"L([ib])(\d+)E", m.group(3))) + ">"
+
+
+def _ptxas_summary(log: str) -> list:
+    """One line per kernel from ``nvcc -Xptxas -v``: its name (template
+    arguments in brackets), registers, barriers and spills; other lines of
+    the log (warnings) as they are."""
+    out, name = [], None
+    for line in log.strip().splitlines():
+        entry = re.search(r"Compiling entry function '(\S+)'", line)
+        if entry:
+            name = _kernel_name(entry.group(1))
+            out.append(name + ":")
+        elif name and ("registers" in line or "spill" in line):
+            out[-1] += " " + line.split(":", 1)[-1].strip() + ";"
+        elif "ptxas info" not in line and line.strip():
+            out.append(line.strip())
+    return out
+
+
+# "/*0270*/  @!P0 MUFU.EX2 R17, R16 ;" -> "MUFU"
+_SASS_OPCODE = re.compile(
+    r"\s+/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)")
+
+
+def _sass_summary(lib: Path, nvcc: str) -> list:
+    """One line per kernel in ``lib``: its machine instructions (``cuobjdump
+    -sass`` beside ``nvcc``, NOPs left out), and among them the
+    transcendental (MUFU), shuffle (SHFL), global load (LDG) and store (STG)
+    ones."""
+    sass = subprocess.run(
+        [str(Path(nvcc).with_name("cuobjdump")), "-sass", str(lib)],
+        check=True, capture_output=True, text=True, timeout=300).stdout
+    out, counts = [], None
+    for line in sass.splitlines():
+        head = re.search(r"Function : (\S+)", line)
+        if head:
+            counts = dict.fromkeys(("all", "MUFU", "SHFL", "LDG", "STG"), 0)
+            out.append((_kernel_name(head.group(1)), counts))
+            continue
+        ins = _SASS_OPCODE.match(line)
+        if counts is None or not ins or ins.group(1) == "NOP":
+            continue
+        counts["all"] += 1
+        if ins.group(1) in counts:
+            counts[ins.group(1)] += 1
+    return [f"{name}: {c['all']} instructions (MUFU {c['MUFU']}, SHFL "
+            f"{c['SHFL']}, LDG {c['LDG']}, STG {c['STG']})"
+            for name, c in out]
 
 
 def _k1_bound_ms(b: int, n: int):
@@ -137,71 +262,82 @@ def _k2_bound_ms(b: int, n: int):
     return _bound_ms(nbytes, 16 * b * n + 5 * b)
 
 
-def check_k1(composite):
+def _time_kernel(tag: str, launch, plain, make_args, bound, floor_ms, flush):
+    """Times one kernel at the train batch B=4096, N=64: hot and cold in L2,
+    with inputs at a 4-byte storage offset (no 16-byte accesses), and its plain
+    version. ``make_args(offset)`` gives its inputs; ``bound`` is (ms, by)."""
+    b, n = RENDER_CHUNK, 64
+    args = make_args(0)
+    ms = _device_ms(lambda: launch(*args))
+    plain_ms = _device_ms(lambda: plain(*args))
+    cold_ms, (cold_q1, cold_q3), flush_ms = _cold_ms(
+        lambda: launch(*args), flush)
+    shifted = make_args(1)
+    unaligned_ms = _device_ms(lambda: launch(*shifted))
+    bound_ms, bound_by = bound
+    print(f"{tag} time B={b} N={n}: hot in L2 {ms * 1e3:.3f} us (less the "
+          f"harness floor {floor_ms * 1e3:.3f} us: {(ms - floor_ms) * 1e3:.3f}"
+          f" us), cold in L2 {cold_ms * 1e3:.3f} us (quartiles "
+          f"{cold_q1 * 1e3:.3f}-{cold_q3 * 1e3:.3f} us; a "
+          f"{FLUSH_BYTES >> 20} MiB write between calls, {flush_ms * 1e3:.2f}"
+          f" us alone, taken out pair by pair), "
+          f"inputs 4 bytes off 16-byte alignment (no 16-byte accesses, bounds "
+          f"checked) {unaligned_ms * 1e3:.3f} us; "
+          f"plain {plain_ms * 1e3:.2f} us; bound {bound_ms * 1e3:.3f} us by "
+          f"{bound_by}; no single PyTorch call computes {tag} (library_ms "
+          "null)", flush=True)
+    return dict(ms=ms, plain_ms=plain_ms, cold_ms=cold_ms,
+                cold_quartiles_ms=[cold_q1, cold_q3], floor_ms=floor_ms,
+                unaligned_ms=unaligned_ms, bound_ms=bound_ms, bound_by=bound_by)
+
+
+def check_k1(composite, floor_ms, flush):
     """Phase 3: K1 against its plain version on the card, then timed."""
     max_err = 0.0
-    for seed, (label, b, n, rng) in enumerate(KERNEL_CASES):
-        density, t_vals, dirs = _k1_inputs(b, n, rng, seed)
+    for seed, (label, b, n, rng, offset) in enumerate(KERNEL_CASES):
+        density, t_vals, dirs = _k1_inputs(b, n, rng, seed, offset)
         w = composite.composite_weights(density, t_vals, dirs)
         ref = composite.plain_composite_weights(density, t_vals, dirs)
         torch.cuda.synchronize()
         err = (w - ref).abs().max().item()
         max_err = max(max_err, err)
         ok = torch.allclose(w, ref, rtol=K1_RTOL, atol=K1_ATOL)
-        print(f"K1 vs plain [{label}] B={b} N={n}: max_abs_err={err:.3e} "
-              f"rtol={K1_RTOL} atol={K1_ATOL} {'ok' if ok else 'MISMATCH'}",
-              flush=True)
+        print(f"K1 vs plain [{label}] B={b} N={n} offset={offset}: "
+              f"max_abs_err={err:.3e} rtol={K1_RTOL} atol={K1_ATOL} "
+              f"{'ok' if ok else 'MISMATCH'}", flush=True)
         if not ok or not torch.isfinite(w).all():
             _fail(f"K1 disagrees with its plain version ({label})")
-
-    b, n = RENDER_CHUNK, 64
-    density, t_vals, dirs = _k1_inputs(b, n, (0.0, 3.0), 99)
-    ms = _device_ms(lambda: composite.composite_weights(density, t_vals, dirs))
-    plain_ms = _device_ms(
-        lambda: composite.plain_composite_weights(density, t_vals, dirs))
-    bound_ms, bound_by = _k1_bound_ms(b, n)
-    print(f"K1 time B={b} N={n} (inputs hot in L2, as in the render path): "
-          f"kernel {ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us, "
-          f"bound {bound_ms * 1e3:.3f} us by {bound_by}; no single PyTorch "
-          f"call computes K1 (library_ms null)", flush=True)
-    return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by)
+    times = _time_kernel(
+        "K1", composite.composite_weights, composite.plain_composite_weights,
+        lambda off: _k1_inputs(RENDER_CHUNK, 64, (0.0, 3.0), 99, off),
+        _k1_bound_ms(RENDER_CHUNK, 64), floor_ms, flush)
+    return dict(max_abs_err=max_err, **times)
 
 
-def check_k2(composite):
+def check_k2(composite, floor_ms, flush):
     """Phase 3b: K2 against its plain version on the card, with a seeded
     random cotangent, then timed."""
     max_err = 0.0
-    for seed, (label, b, n, rng) in enumerate(KERNEL_CASES):
-        density, t_vals, dirs = _k1_inputs(b, n, rng, 100 + seed)
-        g = torch.from_numpy(np.random.default_rng(200 + seed).normal(
-            size=(b, n)).astype(np.float32)).cuda()
+    for seed, (label, b, n, rng, offset) in enumerate(KERNEL_CASES):
+        density, t_vals, dirs = _k1_inputs(b, n, rng, 100 + seed, offset)
+        g = _cotangent(b, n, 200 + seed, offset)
         got = composite._launch_bwd(density, t_vals, dirs, g)
         ref = composite.plain_composite_weights_bwd(density, t_vals, dirs, g)
         torch.cuda.synchronize()
         err = (got - ref).abs().max().item()
         max_err = max(max_err, err)
         ok = torch.allclose(got, ref, rtol=K2_RTOL, atol=K2_ATOL)
-        print(f"K2 vs plain [{label}] B={b} N={n}: max_abs_err={err:.3e} "
-              f"rtol={K2_RTOL} atol={K2_ATOL} {'ok' if ok else 'MISMATCH'}",
-              flush=True)
+        print(f"K2 vs plain [{label}] B={b} N={n} offset={offset}: "
+              f"max_abs_err={err:.3e} rtol={K2_RTOL} atol={K2_ATOL} "
+              f"{'ok' if ok else 'MISMATCH'}", flush=True)
         if not ok or not torch.isfinite(got).all():
             _fail(f"K2 disagrees with its plain version ({label})")
-
-    b, n = RENDER_CHUNK, 64
-    density, t_vals, dirs = _k1_inputs(b, n, (0.0, 3.0), 98)
-    g = torch.from_numpy(np.random.default_rng(97).normal(
-        size=(b, n)).astype(np.float32)).cuda()
-    ms = _device_ms(lambda: composite._launch_bwd(density, t_vals, dirs, g))
-    plain_ms = _device_ms(
-        lambda: composite.plain_composite_weights_bwd(density, t_vals, dirs, g))
-    bound_ms, bound_by = _k2_bound_ms(b, n)
-    print(f"K2 time B={b} N={n} (inputs hot in L2): kernel {ms * 1e3:.2f} us, "
-          f"plain {plain_ms * 1e3:.2f} us, bound {bound_ms * 1e3:.3f} us by "
-          f"{bound_by}; no single PyTorch call computes K2 (library_ms null)",
-          flush=True)
-    return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by)
+    times = _time_kernel(
+        "K2", composite._launch_bwd, composite.plain_composite_weights_bwd,
+        lambda off: _k1_inputs(RENDER_CHUNK, 64, (0.0, 3.0), 98, off)
+        + [_cotangent(RENDER_CHUNK, 64, 97, off)],
+        _k2_bound_ms(RENDER_CHUNK, 64), floor_ms, flush)
+    return dict(max_abs_err=max_err, **times)
 
 
 def _kernel_class(name: str) -> str:
@@ -214,11 +350,12 @@ def _kernel_class(name: str) -> str:
     return "other (elementwise, reductions, copies)"
 
 
-def profile_call(fn, out_dir: Path, tag: str) -> None:
+def profile_call(fn, out_dir: Path, tag: str) -> dict:
     """``--profile DIR``: one warm call of ``fn`` (a render or a train step)
     under ``torch.profiler``; prints the device's busy share and its time by
     kernel class and by kernel, and writes the Chrome trace and the kernel
-    table to ``out_dir`` as ``<tag>_trace.json`` and ``<tag>_kernels.txt``."""
+    table to ``out_dir`` as ``<tag>_trace.json`` and ``<tag>_kernels.txt``.
+    Returns {kernel name: (launches, device us)}."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -253,6 +390,15 @@ def profile_call(fn, out_dir: Path, tag: str) -> None:
         print(f"profile [{tag}]: {us / 1e3:8.2f} ms {count:5d}x {name[:100]}",
               flush=True)
     prof.export_chrome_trace(str(out_dir / f"{tag}_trace.json"))
+    return by_name
+
+
+def _trace_ms(by_name: dict, key: str):
+    """Per-launch device ms, and launches, of the kernels whose name holds
+    ``key`` in a profile's {name: (launches, us)}."""
+    hits = [(c, us) for name, (c, us) in by_name.items() if key in name]
+    count = sum(c for c, _ in hits)
+    return (sum(us for _, us in hits) / count / 1e3 if count else None), count
 
 
 def _mlp_flops_per_sample(params) -> tuple:
@@ -275,7 +421,8 @@ def _mlp_flops_per_sample(params) -> tuple:
 def drive_train(cfg, composite, card: str, profile_dir):
     """Phase 6: joint-cadence train steps at full width on the card: one warm
     step, then TRAIN_STEPS timed steps with the kernels' counts set to 0
-    just before and read just after. Returns (K1 launches, K2 launches)."""
+    just before and read just after. Returns (K1 launches, K2 launches,
+    the profiled step's {kernel: (launches, us)} or None)."""
     from mipnerf360_torch.core.rays import rays_to_device, take_rays
     from mipnerf360_torch.data.synthetic import synthetic_dataset
     from mipnerf360_torch.train import init_train_state, make_train_step
@@ -345,9 +492,11 @@ def drive_train(cfg, composite, card: str, profile_dir):
         _fail(f"param leaves {unchanged} did not change over the train steps")
     print(f"train: all aux finite, all {len(before)} param leaves changed",
           flush=True)
+    trace = None
     if profile_dir is not None:
-        profile_call(lambda: step(state, *batches[1]), profile_dir, "train")
-    return k1, k2
+        trace = profile_call(lambda: step(state, *batches[1]), profile_dir,
+                             "train")
+    return k1, k2, trace
 
 
 def _rel_l2(a, b) -> float:
@@ -477,12 +626,22 @@ def main() -> int:
     libs = _build.build()
     print(f"built {sorted(libs)} in {time.perf_counter() - t0:.1f} s", flush=True)
     for name, log in sorted(_build.BUILD_LOGS.items()):
-        for line in log.strip().splitlines():
+        for line in _ptxas_summary(log):
             print(f"  nvcc[{name}]: {line}", flush=True)
+    for name, lib in sorted(libs.items()):
+        for line in _sass_summary(lib, _build.find_nvcc()):
+            print(f"  sass[{name}]: {line}", flush=True)
 
-    # Phase 3: each kernel against its plain version.
-    k1 = check_k1(composite)
-    k2 = check_k2(composite)
+    # Phase 3: each kernel against its plain version, then timed beside the
+    # floor of the timing harness: a graph of one-element zero_() calls.
+    tiny = torch.zeros(1, device="cuda")
+    floor_ms = _device_ms(tiny.zero_)
+    print(f"timing harness floor (one-element zero_(), CUDA graph of 50): "
+          f"{floor_ms * 1e3:.3f} us per call", flush=True)
+    scratch = torch.empty(FLUSH_BYTES // 4, device="cuda")
+    k1 = check_k1(composite, floor_ms, scratch.zero_)
+    k2 = check_k2(composite, floor_ms, scratch.zero_)
+    del scratch
 
     # Phase 4: full-width render of the held-out views.
     cfg = get_config("synthetic_quality")
@@ -563,8 +722,18 @@ def main() -> int:
                 _fail(f"card and CPU disagree on {k} in {dtype}")
 
     # Phase 6 and 7: the train path at full width, then card against CPU.
-    k1_train, k2_train = drive_train(cfg, composite, card, profile_dir)
+    k1_train, k2_train, trace = drive_train(cfg, composite, card, profile_dir)
     check_train_card_vs_cpu(cfg)
+    for k, key in ((k1, "composite_fwd"), (k2, "composite_bwd")):
+        k["trace_ms"] = None
+        if trace is not None:
+            k["trace_ms"], count = _trace_ms(trace, key)
+            if not count:
+                _fail(f"the profiled train step shows no {key} launch")
+            print(f"{key} in the profiled train step: {count} launches, "
+                  f"{k['trace_ms'] * 1e3:.3f} us per launch (trace); hot "
+                  f"{k['ms'] * 1e3:.3f} us, cold {k['cold_ms'] * 1e3:.3f} us "
+                  "in the graph", flush=True)
 
     def entry(name, replaces, k, by_path):
         return {"name": name, "route": "cuda",
@@ -572,6 +741,10 @@ def main() -> int:
                 "replaces": replaces, "result": "ok",
                 "launches": sum(by_path.values()), "launches_by_path": by_path,
                 "max_abs_err": k["max_abs_err"], "ms": k["ms"],
+                "cold_ms": k["cold_ms"],
+                "cold_quartiles_ms": k["cold_quartiles_ms"],
+                "floor_ms": k["floor_ms"],
+                "unaligned_ms": k["unaligned_ms"], "trace_ms": k["trace_ms"],
                 "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                 "bound_by": k["bound_by"], "library_ms": None}
 

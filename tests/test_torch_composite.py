@@ -41,7 +41,10 @@ def _t(x):
     return torch.from_numpy(np.asarray(x, np.float32).copy())
 
 
-@pytest.mark.parametrize("b,n", [(300, 64), (300, 16)])
+# N = 1 and 3: rows that are not 16-byte multiples; N = 128: the longest ray
+# one register chunk of the card's kernels holds.
+@pytest.mark.parametrize("b,n", [(300, 64), (300, 16), (37, 1), (37, 3),
+                                 (20, 128)])
 def test_plain_k1_matches_pallas_kernel(b, n):
     density, t_vals, dirs = _inputs(b, n)
     with pltpu.force_tpu_interpret_mode():
@@ -116,7 +119,9 @@ def _pallas_vjp(density, t_vals, dirs, g):
 @pytest.mark.parametrize("b,n,density_range", [
     (64, 16, (0.0, 3.0)), (40, 65, (0.0, 3.0)),
     (64, 16, (0.0, 1e-4)),            # near-zero density, dd < 1e-2
-    (64, 16, (50.0, 500.0))])         # opaque rays, T underflows to 0
+    (64, 16, (50.0, 500.0)),          # opaque rays, T underflows to 0
+    (37, 1, (0.0, 3.0)), (37, 3, (0.0, 3.0)),   # rows not 16-byte multiples
+    (20, 128, (0.0, 3.0))])           # the longest ray in one chunk
 def test_plain_k2_matches_pallas_vjp(b, n, density_range):
     density, t_vals, dirs = _inputs(b, n, seed=7, density_range=density_range)
     g = np.random.default_rng(8).normal(size=(b, n)).astype(np.float32)

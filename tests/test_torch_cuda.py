@@ -48,8 +48,27 @@ def _inputs(b, n, seed=0, density_range=(0.0, 3.0)):
     return [torch.from_numpy(x) for x in (density, t_vals, dirs)]
 
 
+def _at_offset(x, device, offset=1):
+    """``x`` on ``device`` as a contiguous view ``offset`` floats into a
+    larger buffer, so its storage is not 16-byte aligned."""
+    buf = torch.full((x.numel() + offset,), float("nan"), device=device)
+    view = buf[offset:].view(x.shape)
+    view.copy_(x)
+    assert view.is_contiguous() and view.storage_offset() == offset
+    return view
+
+
+# The train batch (and render chunk), ragged B with small N, one ray with N
+# not a multiple of 4, near-zero density (the expm1 region), opaque rays (T
+# underflows), one ray past a whole number of 16-ray tiles, rows that are
+# not 16-byte multiples (N = 1, 3), the longest ray one register chunk
+# holds (N = 128), and rays of 2 and 40 chunks of 128 samples (N = 256,
+# 5000), where K2 parks T in its output row.
 SHAPES = [(4096, 64, (0.0, 3.0)), (300, 16, (0.0, 3.0)), (1, 65, (0.0, 3.0)),
-          (1024, 64, (0.0, 1e-4)), (1024, 64, (50.0, 500.0))]
+          (1024, 64, (0.0, 1e-4)), (1024, 64, (50.0, 500.0)),
+          (4097, 64, (0.0, 3.0)), (300, 1, (0.0, 3.0)), (300, 3, (0.0, 3.0)),
+          (1024, 128, (0.0, 3.0)), (512, 256, (0.0, 3.0)),
+          (3, 5000, (0.0, 1.0))]
 
 
 @pytest.mark.parametrize("b,n,density_range", SHAPES)
@@ -73,6 +92,25 @@ def test_k2_matches_plain_version(cuda, b, n, density_range):
     assert torch.isfinite(got).all()
     torch.testing.assert_close(
         got, composite.plain_composite_weights_bwd(*args, g), **K2_TOL)
+
+
+@pytest.mark.parametrize("b,n", [(4096, 64), (300, 3), (5, 1), (2, 5000)])
+def test_kernels_at_a_storage_offset(cuda, b, n):
+    """Inputs and cotangent that are contiguous views 4 bytes into a larger
+    buffer: no row is 16-byte aligned, so the kernels take no 16-byte
+    access, also where K2 reads back the T it parked (N = 5000)."""
+    density, t_vals, dirs = _inputs(b, n, 10, (0.0, 3.0 if n < 1000 else 1.0))
+    g = torch.from_numpy(np.random.default_rng(11).normal(
+        size=(b, n)).astype(np.float32))
+    aligned = [x.to(cuda) for x in (density, t_vals, dirs, g)]
+    shifted = [_at_offset(x, cuda) for x in aligned]
+    w = composite.composite_weights(*shifted[:3])
+    got = composite._launch_bwd(*shifted)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(
+        w, composite.plain_composite_weights(*aligned[:3]), **K1_TOL)
+    torch.testing.assert_close(
+        got, composite.plain_composite_weights_bwd(*aligned), **K2_TOL)
 
 
 def test_k1_refuses_what_it_cannot_take(cuda):
