@@ -9,12 +9,20 @@ port's two paths at the full width of the ``synthetic_quality`` preset:
 
 - the render: the synthetic scene's held-out views through ``render_image``;
 - training: joint-cadence train steps (``joint_cadence_step``) of 4096 rays
-  drawn from the synthetic train split.
+  drawn from the synthetic train split;
+- the trainer and its entry points: ``apps.train.main`` straight to 120
+  steps (run A), and to 60 steps then ``--resume`` to 120 (run B), with
+  logs, evals, ``keep_best`` and async checkpoints on their cadences; B's
+  restored state must equal A's checkpoint at step 60 exactly and its later
+  losses A's; then ``apps.eval.main`` renders the held-out views of A's
+  checkpoint and must beat the PSNR of the random-init render. Before it,
+  two steps of the train loop run under CUDA's sync debug mode, which names
+  each line that makes the host wait for the card.
 
 Each path runs with the kernels' launch counts set to 0 just before it and
-read just after. The card is checked against the CPU on both paths. Any
-failure exits non-zero. It needs one CUDA device, and refuses to run without
-one or without the package beside it.
+read just after. The card is checked against the CPU on the render and the
+train step. Any failure exits non-zero. It needs one CUDA device, and
+refuses to run without one or without the package beside it.
 
 Each kernel is timed with its inputs hot in L2 (as the main path leaves
 them), cold in L2 (a 128 MiB write between calls, its own time taken out),
@@ -35,10 +43,14 @@ from __future__ import annotations
 import dataclasses
 import json
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+import warnings
+from collections import Counter
 from pathlib import Path
 
 import numpy as np
@@ -54,6 +66,17 @@ PARITY_RAYS = 128
 # Train-path settings: one warm step, then TRAIN_STEPS timed steps of the
 # preset's batch (4096 rays).
 TRAIN_STEPS = 6
+# Trainer-path settings: run A trains straight to TRAINER_STEPS, run B to
+# half of it and then resumes. Logs, saves and evals at these cadences; both
+# runs take the preset's own LR horizon (its max_steps), so that B's first
+# half is A's. B's losses after the resume are held to A's at
+# TRAINER_LOSS_RTOL: bit-identical when the card repeats itself exactly, and
+# otherwise apart by float32 summation orders grown over 60 steps.
+TRAINER_STEPS = 120
+TRAINER_SETS = ["train.log_every=20", "train.save_every=60",
+                "train.eval_every=60", "train.eval_image_every=60",
+                "train.lr_max_steps=10000"]
+TRAINER_LOSS_RTOL = 1e-2
 
 # K1 against its plain version: the JAX package's Pallas-vs-core tolerance
 # (tests/test_pallas_ops.py). The two differ only in the order of the
@@ -422,7 +445,8 @@ def drive_train(cfg, composite, card: str, profile_dir):
     """Phase 6: joint-cadence train steps at full width on the card: one warm
     step, then TRAIN_STEPS timed steps with the kernels' counts set to 0
     just before and read just after. Returns (K1 launches, K2 launches,
-    the profiled step's {kernel: (launches, us)} or None)."""
+    the median rays/s of the timed steps, the profiled step's {kernel:
+    (launches, us)} or None)."""
     from mipnerf360_torch.core.rays import rays_to_device, take_rays
     from mipnerf360_torch.data.synthetic import synthetic_dataset
     from mipnerf360_torch.train import init_train_state, make_train_step
@@ -496,7 +520,7 @@ def drive_train(cfg, composite, card: str, profile_dir):
     if profile_dir is not None:
         trace = profile_call(lambda: step(state, *batches[1]), profile_dir,
                              "train")
-    return k1, k2, trace
+    return k1, k2, batch / med, trace
 
 
 def _rel_l2(a, b) -> float:
@@ -587,6 +611,196 @@ def check_train_card_vs_cpu(cfg):
               f"{worst_frac:.3f}", flush=True)
 
 
+def sync_sites(cfg, here: Path) -> Counter:
+    """Phase 8a: two steps of the banked train loop under
+    ``torch.cuda.set_sync_debug_mode("warn")``: {file:line: count} of the
+    Python lines whose ops synchronized the host with the card."""
+    from mipnerf360_torch.core.rays import rays_to_device
+    from mipnerf360_torch.data import get_dataset
+    from mipnerf360_torch.train import init_train_state, make_banked_train_loop
+
+    ds = get_dataset(cfg.data, "train", white_bkgd=cfg.model.white_bkgd)
+    bank = (rays_to_device(ds.rays, "cuda"),
+            torch.as_tensor(ds.pixels, device="cuda"))
+    idx = torch.as_tensor(ds.index_stack(2, cfg.train.batch_size, 0, 0)).cuda()
+    state = init_train_state(cfg.model, cfg.train, device="cuda")
+    loop = make_banked_train_loop(cfg)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            loop(state, *bank, idx)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    sites = Counter()
+    for w in caught:
+        if "synchroniz" in str(w.message):
+            path = Path(w.filename).resolve()
+            name = (str(path.relative_to(here)) if path.is_relative_to(here)
+                    else "/".join(path.parts[-3:]))
+            sites[f"{name}:{w.lineno}"] += 1
+    return sites
+
+
+def _metric_records(ckpt: Path) -> list:
+    with open(ckpt / "metrics.jsonl") as f:
+        return [json.loads(line) for line in f]
+
+
+def drive_trainer(cfg, composite, card: str, here: Path,
+                  step_rays_per_s: float, init_psnr: float):
+    """Phase 8: the trainer path through ``apps.train.main`` in process, at
+    full width: run A straight to TRAINER_STEPS, run B to half of it, then
+    ``--resume`` to TRAINER_STEPS; then ``apps.eval.main`` on A. Each run
+    is driven with the kernels' counts set to 0 just before and read just
+    after. Returns (K1, K2) launches of run A."""
+    from mipnerf360_torch import native
+    from mipnerf360_torch.apps import eval as eval_app
+    from mipnerf360_torch.apps import train as train_app
+    from mipnerf360_torch.data import get_dataset
+    from mipnerf360_torch.train import init_train_state
+    from mipnerf360_torch.train.checkpoint import restore_checkpoint
+    from mipnerf360_torch.train.state import leaves
+
+    sites = sync_sites(cfg, here)
+    print("train loop, host syncs in 2 banked steps by source line: "
+          + (", ".join(f"{k} x{v}" for k, v in sorted(sites.items()))
+             or "none"), flush=True)
+    ours = [k for k in sites if k.startswith("mipnerf360_torch/train/")]
+    if ours:
+        _fail(f"the train loop syncs with the host at {ours}")
+
+    test = get_dataset(cfg.data, "test", white_bkgd=cfg.model.white_bkgd)
+    sets = dict(s.split("=", 1) for s in TRAINER_SETS)
+    every = {k: int(sets[f"train.{k}"]) for k in
+             ("log_every", "save_every", "eval_every", "eval_image_every")}
+    chunks_per_view = -(-test.h * test.w // cfg.train.eval_image_chunk)
+
+    def expected(start: int, end: int):
+        """K1 and K2 launches of a run from ``start`` to ``end``: two of each
+        per step; two K1 per forward of the eval_every batch, and per render
+        chunk of each view of the image eval."""
+        crossings = lambda n: end // n - start // n
+        k1 = (2 * (end - start) + 2 * crossings(every["eval_every"])
+              + 2 * test.n_images * chunks_per_view
+              * crossings(every["eval_image_every"]))
+        return k1, 2 * (end - start)
+
+    def run(name: str, ckpt: Path, steps: int, resume: bool = False):
+        argv = ["--preset", "synthetic_quality",
+                "--set", f"train.checkpoint_dir={ckpt}",
+                "--set", f"train.max_steps={steps}"]
+        argv += [a for s in TRAINER_SETS for a in ("--set", s)]
+        argv += ["--resume"] if resume else []
+        start = 0
+        if resume:
+            start = max(r["step"] for r in _metric_records(ckpt))
+        composite.launches = composite.bwd_launches = 0
+        t0 = time.perf_counter()
+        state = train_app.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        k1, k2 = composite.launches, composite.bwd_launches
+        want = expected(start, steps)
+        print(f"trainer run {name}: steps {start} -> {steps} in {wall:.1f} s "
+              f"(start-up, evals and saves included); K1 launches {k1}, K2 "
+              f"launches {k2} (expected {want[0]} and {want[1]})", flush=True)
+        if (k1, k2) != want:
+            _fail(f"trainer run {name} launched K1 {k1} and K2 {k2} times, "
+                  f"expected {want}")
+        return state, (k1, k2)
+
+    def same_state(a, b) -> bool:
+        tensors = lambda s: leaves(s.params) + [
+            t for k in ("prop", "nerf")
+            for t in leaves(s.opt_state[k].mu) + leaves(s.opt_state[k].nu)]
+        return ((a.step, a.sched_count) == (b.step, b.sched_count)
+                and all(torch.equal(x, y)
+                        for x, y in zip(tensors(a), tensors(b))))
+
+    batcher = "g++ build" if native.native_available() else "NumPy (no g++)"
+    print(f"trainer: batcher path {batcher}; {TRAINER_STEPS} steps of "
+          f"{cfg.train.batch_size} rays, " + ", ".join(TRAINER_SETS),
+          flush=True)
+    (here / "build").mkdir(exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_", dir=here / "build"))
+    try:
+        dir_a, dir_b = work / "A", work / "B"
+        half = TRAINER_STEPS // 2
+        state_a, launches_a = run("A", dir_a, TRAINER_STEPS)
+        state_b, _ = run("B", dir_b, half)
+        restored_b = restore_checkpoint(
+            str(dir_b), init_train_state(cfg.model, cfg.train, device="cuda"))
+        a_half = restore_checkpoint(
+            str(dir_a), init_train_state(cfg.model, cfg.train, device="cuda"),
+            step=half)
+        exact_b = same_state(restored_b, state_b) and torch.equal(
+            restored_b.generator.get_state(), state_b.generator.get_state())
+        equal_a = same_state(restored_b, a_half)
+        print(f"trainer: B's checkpoint at step {half} restores B's state "
+              f"{'exactly' if exact_b else 'NOT exactly'} (generator "
+              f"included); it equals A's ckpt_{half} "
+              f"{'exactly' if equal_a else 'NOT exactly'}", flush=True)
+        if not exact_b or not equal_a:
+            _fail(f"the step-{half} restore is not exact")
+        del state_b, restored_b, a_half
+        state_b, _ = run("B resumed", dir_b, TRAINER_STEPS, resume=True)
+
+        rec_a, rec_b = _metric_records(dir_a), _metric_records(dir_b)
+        loss_a = {r["step"]: r["train/loss"] for r in rec_a if "train/loss" in r}
+        loss_b = {r["step"]: r["train/loss"] for r in rec_b if "train/loss" in r}
+        bad = [(s, v) for s, v in list(loss_a.items()) + list(loss_b.items())
+               if not np.isfinite(v)]
+        if bad or sorted(loss_a) != sorted(loss_b):
+            _fail(f"trainer losses not finite or not logged alike: {bad}, "
+                  f"{sorted(loss_a)} vs {sorted(loss_b)}")
+        print("trainer run A train/loss by step: " + ", ".join(
+            f"{s}: {v:.5f}" for s, v in sorted(loss_a.items())), flush=True)
+        after = [s for s in sorted(loss_a) if s > half]
+        rel = max(abs(loss_b[s] - loss_a[s]) / abs(loss_a[s]) for s in after)
+        identical = (all(loss_a[s] == loss_b[s] for s in loss_a)
+                     and same_state(state_a, state_b))
+        print(f"trainer: B's losses after the resume vs A's: largest relative "
+              f"difference {rel:.3e} (rtol {TRAINER_LOSS_RTOL}); the card ran "
+              f"A and B {'bit-identically' if identical else 'NOT bit-identically'}"
+              " (every logged loss and the final state)", flush=True)
+        if rel > TRAINER_LOSS_RTOL:
+            _fail("B's losses after the resume disagree with A's")
+        first, last = loss_a[min(loss_a)], loss_a[max(loss_a)]
+        if not last < first:
+            _fail(f"run A's loss did not fall: {first} -> {last}")
+
+        # Chunks whose timing window holds no eval and no save: those not
+        # right after a boundary where one ran.
+        busy = {s for s in loss_a for n in ("save_every", "eval_every",
+                                            "eval_image_every")
+                if s % every[n] == 0}
+        clean = [(r["step"], r["perf/rays_per_sec"]) for r in rec_a
+                 if "perf/rays_per_sec" in r
+                 and r["step"] - every["log_every"] not in busy]
+        trainer_rays = statistics.median(v for _, v in clean)
+        print(f"trainer perf/rays_per_sec, run A, chunks of "
+              f"{every['log_every']} steps without eval or save "
+              f"{[(s, round(v)) for s, v in clean]}: median {trainer_rays:.0f}"
+              f" rays/s, against {step_rays_per_s:.0f} rays/s for the bare "
+              f"step of phase 6 ({trainer_rays / step_rays_per_s:.3f}x); on "
+              f"{card}", flush=True)
+
+        summary = eval_app.main(["--ckpt", str(dir_a), "--device", "cuda"])
+        print(f"eval of run A (step {summary['step']}): mean PSNR "
+              f"{summary['mean_psnr']:.3f} dB over {summary['n_views']} "
+              f"views, against {init_psnr:.3f} dB for phase 4's render at "
+              "random init", flush=True)
+        if (summary["n_views"] != test.n_images
+                or not summary["mean_psnr"] > init_psnr):
+            _fail("the eval after training is not above the random-init PSNR")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return launches_a
+
+
 def main() -> int:
     profile_dir = None
     if len(sys.argv) == 3 and sys.argv[1] == "--profile":
@@ -611,6 +825,7 @@ def main() -> int:
     from mipnerf360_torch.models.mipnerf360 import (init_model, map_params,
                                                     render_image, render_rays)
     from mipnerf360_torch.ops import _build, composite
+    from mipnerf360_torch.utils import metrics
 
     if Path(mipnerf360_torch.__file__).resolve().parents[1] != here:
         _fail(f"imported mipnerf360_torch from {mipnerf360_torch.__file__}")
@@ -675,6 +890,14 @@ def main() -> int:
     for name, x in (("rgb", rgb), ("distance", distance), ("acc", acc)):
         if not torch.isfinite(x).all():
             _fail(f"render output {name} is not finite")
+    # The trainer starts from these params (its init draws from the same
+    # seed), so this is the PSNR phase 8's eval has to beat.
+    views = (-1, test.h, test.w, 3)
+    init_psnr = float(np.mean([
+        metrics.psnr(a, b) for a, b in zip(rgb.cpu().numpy().reshape(views),
+                                           test.pixels.reshape(views))]))
+    print(f"render at random init: mean PSNR {init_psnr:.3f} dB over "
+          f"{test.n_images} views", flush=True)
 
     times = []
     for _ in range(6):
@@ -722,7 +945,8 @@ def main() -> int:
                 _fail(f"card and CPU disagree on {k} in {dtype}")
 
     # Phase 6 and 7: the train path at full width, then card against CPU.
-    k1_train, k2_train, trace = drive_train(cfg, composite, card, profile_dir)
+    k1_train, k2_train, step_rays_per_s, trace = drive_train(
+        cfg, composite, card, profile_dir)
     check_train_card_vs_cpu(cfg)
     for k, key in ((k1, "composite_fwd"), (k2, "composite_bwd")):
         k["trace_ms"] = None
@@ -734,6 +958,10 @@ def main() -> int:
                   f"{k['trace_ms'] * 1e3:.3f} us per launch (trace); hot "
                   f"{k['ms'] * 1e3:.3f} us, cold {k['cold_ms'] * 1e3:.3f} us "
                   "in the graph", flush=True)
+
+    # Phase 8: the trainer and the entry points, train -> resume -> eval.
+    k1_trainer, k2_trainer = drive_trainer(cfg, composite, card, here,
+                                           step_rays_per_s, init_psnr)
 
     def entry(name, replaces, k, by_path):
         return {"name": name, "route": "cuda",
@@ -750,9 +978,11 @@ def main() -> int:
 
     record = {"kernels": [
         entry("K1_composite_fwd", "mipnerf360_tpu/ops/pallas/composite.py:46",
-              k1, {"render": k1_render, "train": k1_train}),
+              k1, {"render": k1_render, "train": k1_train,
+                   "trainer": k1_trainer}),
         entry("K2_composite_bwd", "mipnerf360_tpu/ops/pallas/composite.py:59",
-              k2, {"render": k2_render, "train": k2_train}),
+              k2, {"render": k2_render, "train": k2_train,
+                   "trainer": k2_trainer}),
     ]}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,15 +1,16 @@
 """Dataset container (host-side NumPy; counterpart of
 ``mipnerf360_tpu/data/base.py``).
 
-Rays for all images are generated once and flattened to [N, c] arrays, and
-whole images are sliced out of them. Training batches (the native batch
-sampler) and the lazy render split come with the trainer and the render
-splits.
+Rays for all images are generated once and flattened to [N, c] arrays;
+training batches are gathers from the stateless index stream of the native
+batcher, and eval iterates whole images. Moving batches to the card happens
+in the trainer. The process-local ``*_local`` variants and the lazy render
+split come with the parallel and data slices.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Iterator, Optional, Tuple
 
 import numpy as np
 
@@ -29,6 +30,42 @@ class RayDataset:
     @property
     def n_rays(self) -> int:
         return self.rays.origins.shape[0]
+
+    def batches(self, batch_size: int, seed: int = 0
+                ) -> Iterator[Tuple[Rays, np.ndarray]]:
+        """Infinite stream of uniformly sampled ray batches (the reference's
+        shuffling DataLoader + cycle()); the trainer's ``eval_every`` batches."""
+        rng = np.random.default_rng(seed)
+        n = self.n_rays
+        while True:
+            idx = rng.integers(0, n, size=(batch_size,))
+            yield rays_map(lambda x: x[idx], self.rays), self.pixels[idx]
+
+    def batch_stack(self, k: int, batch_size: int, seed: int, start_step: int
+                    ) -> Tuple[Rays, np.ndarray]:
+        """K per-step batches as one [K, B, c] stack, sampled and gathered by
+        the native batcher. The index stream is stateless in (seed, global
+        ray counter), so data order is resume-deterministic and independent
+        of the dispatch chunking."""
+        from ..native import fill_batch_stack
+
+        total = k * batch_size
+        arrays = list(self.rays) + [self.pixels]
+        outs = fill_batch_stack(seed, start_step * batch_size, total, arrays)
+        outs = [o.reshape(k, batch_size, o.shape[-1]) for o in outs]
+        return Rays(*outs[:-1]), outs[-1]
+
+    def index_stack(self, k: int, batch_size: int, seed: int, start_step: int
+                    ) -> np.ndarray:
+        """[k, B] int32 ray indices of the SAME stateless stream that
+        :meth:`batch_stack` gathers, for staging from a bank held on the card
+        (``train/step.py::make_banked_train_loop``): only these indices cross
+        to the card."""
+        from ..native import sample_indices
+
+        idx = sample_indices(seed, start_step * batch_size, k * batch_size,
+                             self.n_rays)
+        return idx.reshape(k, batch_size).astype(np.int32)
 
     def image(self, i: int) -> Tuple[Rays, Optional[np.ndarray]]:
         """All rays (and pixels) of image ``i``, flattened [H*W, c]."""

@@ -12,6 +12,9 @@ The optimizer is the JAX package's optax chain, written out:
 ``add_decayed_weights(wd)``, then ``p -= lr * u`` with the lr given on each
 call. One state per subtree (``"prop"``, ``"nerf"``), each with its own
 count, as there.
+
+:func:`state_dict` and :func:`load_state_dict` give the state as one tree
+for checkpoints (``train/checkpoint.py``), generator state included.
 """
 from __future__ import annotations
 
@@ -44,7 +47,7 @@ class TrainState:
     sched_count: int             # scheduler counter (3x/step in reference cadence)
     params: Params               # {"prop": ..., "nerf": ...}; leaves require grad
     opt_state: Dict[str, AdamState]  # {"prop": ..., "nerf": ...}
-    generator: torch.Generator   # draws the randomized sampling noise
+    generator: Optional[torch.Generator]  # draws the sampling noise; None in eval
 
 
 def leaves(tree) -> List[torch.Tensor]:
@@ -92,6 +95,73 @@ def make_train_state(params: Params, *, device, generator: torch.Generator,
         opt_state = {k: init_adam(params[k]) for k in ("prop", "nerf")}
     return TrainState(step=step, sched_count=sched_count, params=params,
                       opt_state=opt_state, generator=generator)
+
+
+def state_dict(state: TrainState) -> dict:
+    """The whole state as a tree of ints, strs and tensors (what
+    ``torch.save`` writes and ``torch.load(..., weights_only=True)`` reads):
+    the counters, the params, each subtree's Adam ``count``, ``mu`` and
+    ``nu``, and the generator's state with its device type, so that a
+    resumed run draws the same noise as a straight one. The tensors are
+    detached views of the live ones; a caller that lets the state step on
+    copies them first."""
+    detach = lambda t: t.detach()
+    return {
+        "step": int(state.step),
+        "sched_count": int(state.sched_count),
+        "params": map_params(detach, state.params),
+        "opt_state": {k: {"count": int(a.count), "mu": map_params(detach, a.mu),
+                          "nu": map_params(detach, a.nu)}
+                      for k, a in state.opt_state.items()},
+        "generator": {"device": state.generator.device.type,
+                      "state": state.generator.get_state()},
+    }
+
+
+def _copy_tree(dst, src, path: str) -> None:
+    """Copy ``src`` into ``dst`` leaf by leaf, in place; the nesting, keys,
+    lengths and shapes must match."""
+    if isinstance(dst, dict):
+        if not isinstance(src, dict) or set(src) != set(dst):
+            raise ValueError(f"{path}: expected keys {sorted(dst)}")
+        for k in dst:
+            _copy_tree(dst[k], src[k], f"{path}.{k}")
+    elif isinstance(dst, (list, tuple)):
+        if not isinstance(src, (list, tuple)) or len(src) != len(dst):
+            raise ValueError(f"{path}: expected a sequence of {len(dst)}")
+        for i, (d, s) in enumerate(zip(dst, src)):
+            _copy_tree(d, s, f"{path}.{i}")
+    else:
+        if tuple(src.shape) != tuple(dst.shape):
+            raise ValueError(f"{path}: shape {tuple(src.shape)} does not "
+                             f"match {tuple(dst.shape)}")
+        dst.copy_(src)
+
+
+@torch.no_grad()
+def load_state_dict(state: TrainState, sd: dict) -> TrainState:
+    """Load :func:`state_dict` output into ``state`` in place (params and
+    moments keep their tensors and device) and return it. The generator is
+    restored on the device type it was saved from: loading a card
+    generator's state into a CPU generator, or the reverse, raises. A state
+    whose generator is None (one that draws no noise, as the eval's) takes
+    no generator state."""
+    gen, saved = state.generator, sd["generator"]["device"]
+    if gen is not None and saved != gen.device.type:
+        raise ValueError(
+            f"the checkpoint's generator was saved on {saved!r}; it cannot "
+            f"be restored into a generator on {gen.device.type!r}"
+            " (train on the device the checkpoint was written from)")
+    _copy_tree(state.params, sd["params"], "params")
+    for k, a in state.opt_state.items():
+        _copy_tree(a.mu, sd["opt_state"][k]["mu"], f"opt_state.{k}.mu")
+        _copy_tree(a.nu, sd["opt_state"][k]["nu"], f"opt_state.{k}.nu")
+        a.count = int(sd["opt_state"][k]["count"])
+    state.step = int(sd["step"])
+    state.sched_count = int(sd["sched_count"])
+    if gen is not None:
+        gen.set_state(sd["generator"]["state"].cpu())
+    return state
 
 
 @torch.no_grad()

@@ -16,7 +16,8 @@ Where the JAX package splits its PRNG key, a step here takes explicit
 ``noise`` (the uniforms of each forward, as :class:`RenderNoise`) or, when
 it is None, draws them from ``state.generator``. The step updates the
 state's params and moments in place and returns the state with its counters
-advanced, and the aux dict of 0-d tensors (detached).
+advanced, and the aux dict of 0-d tensors (detached). ``make_train_loop``
+and ``make_banked_train_loop`` run K steps per call, as the trainer does.
 """
 from __future__ import annotations
 
@@ -26,7 +27,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 
 from ..config import Config
-from ..core.rays import Rays
+from ..core.rays import Rays, rays_map
 from ..losses.distillation import distillation_loss
 from ..losses.distortion import distortion_loss
 from ..losses.photometric import photometric_loss
@@ -176,3 +177,54 @@ def make_train_step(cfg: Config, data_shards: int = 1):
     fn = (reference_cadence_step if cfg.train.cadence == "reference"
           else joint_cadence_step)
     return functools.partial(fn, cfg, data_shards=data_shards)
+
+
+def _stack(auxes) -> Aux:
+    """Per-step aux dicts -> one dict of [K] tensors, each on the device its
+    values are on (the lr stays on the CPU): no host sync."""
+    return {k: torch.stack([a[k] for a in auxes]) for k in auxes[0]}
+
+
+def make_train_loop(cfg: Config, data_shards: int = 1):
+    """K train steps of the configured cadence in a Python loop:
+    ``loop(state, rays_stack, pixels_stack)``, where every field of the rays
+    and the pixels have a leading [K] axis (one entry per step). Returns the
+    state and the per-step aux dict stacked to [K].
+
+    The counterpart of the JAX package's scanned loop. Nothing in it syncs
+    with the host, so the host queues the K steps ahead of the card; the
+    caller reads the stacked aux once per chunk."""
+    step = make_train_step(cfg, data_shards)
+
+    def loop(state, rays_stack, pixels_stack):
+        auxes = []
+        for i in range(pixels_stack.shape[0]):
+            state, aux = step(state, rays_map(lambda x: x[i], rays_stack),
+                              pixels_stack[i])
+            auxes.append(aux)
+        return state, _stack(auxes)
+
+    return loop
+
+
+def make_banked_train_loop(cfg: Config, data_shards: int = 1):
+    """K train steps that gather each step's batch on the device from a bank
+    held there: ``loop(state, bank_rays, bank_pixels, idx_stack)``.
+
+    The bank (every flattened ray and pixel row of the train split) is
+    uploaded once per run; per chunk only a [K, B] int32 index stack crosses
+    to the device, and is widened to int64 there. Batch selection is
+    bit-identical to host staging (``RayDataset.index_stack`` is the stream
+    ``batch_stack`` gathers), so the two loops give the same results."""
+    step = make_train_step(cfg, data_shards)
+
+    def loop(state, bank_rays, bank_pixels, idx_stack):
+        idx_stack = idx_stack.long()
+        auxes = []
+        for idx in idx_stack:
+            rays = rays_map(lambda x: x.index_select(0, idx), bank_rays)
+            state, aux = step(state, rays, bank_pixels.index_select(0, idx))
+            auxes.append(aux)
+        return state, _stack(auxes)
+
+    return loop
