@@ -17,11 +17,24 @@ port's two paths at the full width of the ``synthetic_quality`` preset:
   losses A's; then ``apps.eval.main`` renders the held-out views of A's
   checkpoint and must beat the PSNR of the random-init render. Before it,
   two steps of the train loop run under CUDA's sync debug mode, which names
-  each line that makes the host wait for the card.
+  each line that makes the host wait for the card;
+- ``garden_quality`` on an LLFF-layout capture of the analytic sphere at
+  the size of garden at factor 8, which the script writes (185 views of
+  648x420): a third of the held-out views at random init, ``apps.train``
+  with host staging (as ``stage_mode=auto`` picks for its 2.45 GiB of train
+  rays) and with the bank on the card, ``apps.eval --lpips`` (random VGG
+  weights) on every held-out view, which must beat the random-init PSNR on
+  the same views, and ``apps.video --depth --normals`` on the spherified
+  orbit;
+- ``blender_lego_quality`` on an 800x800 RGBA Blender-layout capture:
+  ``apps.train`` and ``apps.video`` on the synthesized render path;
+- ``apps.video`` on the synthetic scene's render split, the port's PNG
+  decoder against the loaders' image reader, LPIPS and ``checkify_fn``.
 
 Each path runs with the kernels' launch counts set to 0 just before it and
-read just after. The card is checked against the CPU on the render and the
-train step. Any failure exits non-zero. It needs one CUDA device, and
+read just after. The card is checked against the CPU on the render (the
+synthetic and the garden rays), the train step and LPIPS. Any failure exits
+non-zero. It needs one CUDA device, and
 refuses to run without one or without the package beside it.
 
 Each kernel is timed with its inputs hot in L2 (as the main path leaves
@@ -51,7 +64,9 @@ import tempfile
 import time
 import warnings
 from collections import Counter
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -77,6 +92,41 @@ TRAINER_SETS = ["train.log_every=20", "train.save_every=60",
                 "train.eval_every=60", "train.eval_image_every=60",
                 "train.lr_max_steps=10000"]
 TRAINER_LOSS_RTOL = 1e-2
+
+# Phase 9: garden_quality at full width on an LLFF-layout capture of the
+# analytic sphere at the size of garden at factor 8: 185 views of 648x420,
+# every 8th (24) held out. Its 161 train views hold 43.8 M rays, 2.45 GiB
+# with their pixels: above the trainer's 2 GiB bank threshold, so
+# stage_mode=auto stages from the host (at 131 train views it would not).
+# Run A trains GARDEN_STEPS with batch evals at step 60 and 120, one image
+# eval at 120 (4 views, the preset's eval_image_views) and no periodic
+# save; run B takes the first GARDEN_BANK_STEPS with the bank on the card,
+# no eval or save in its window. The video renders GARDEN_VIDEO_POSES of the
+# preset's 120 orbit poses. The random-init render, the eval's reference,
+# takes every GARDEN_INIT_STRIDE-th held-out view (8 of the 24), and the
+# eval's PSNR on those views must beat it. (8 video poses, an image eval at
+# step 60 too and a random-init render of all 24 views made the script 5.4
+# minutes long; all three were cut for time.)
+GARDEN_VIEWS, GARDEN_W, GARDEN_H, GARDEN_FACTOR = 185, 648, 420, 8
+GARDEN_STEPS, GARDEN_BANK_STEPS, GARDEN_VIDEO_POSES = 120, 40, 4
+GARDEN_INIT_STRIDE = 3
+GARDEN_SETS = ["train.log_every=20", "train.eval_every=60",
+               "train.eval_image_every=120", "train.lr_max_steps=10000"]
+# Phase 10: blender_lego_quality at full width on a Blender-layout capture
+# of 800x800 RGBA views (loaded at factor 2, 400x400): lego's 100 train
+# views, its 200 test views cut to 8, LEGO_STEPS steps, and LEGO_VIDEO_POSES
+# of the preset's 120 render-path poses at 800x800.
+LEGO_TRAIN, LEGO_TEST, LEGO_RES = 100, 8, 800
+LEGO_STEPS, LEGO_VIDEO_POSES = 20, 2
+# Threads that render and write a capture's PNGs (NumPy and zlib release
+# the interpreter lock).
+CAPTURE_WORKERS = 8
+# LPIPS on the card against the CPU: float32 convolutions with TF32 off,
+# another summation order through 13 layers.
+LPIPS_RTOL = 1e-4
+# Phase 11 decodes this many garden PNGs with the port's own decoder and
+# with the loaders' reader.
+PNG_CHECK_VIEWS = 24
 
 # K1 against its plain version: the JAX package's Pallas-vs-core tolerance
 # (tests/test_pallas_ops.py). The two differ only in the order of the
@@ -441,6 +491,40 @@ def _mlp_flops_per_sample(params) -> tuple:
     return fwd, bwd
 
 
+def check_render_card_vs_cpu(mcfg, params_cpu, params, rays, tag: str):
+    """Phases 5 and 9: the deterministic render of ``rays`` on the card
+    against the CPU, same params, in float32 and in bfloat16."""
+    from mipnerf360_torch.core.rays import rays_to_device
+    from mipnerf360_torch.models.mipnerf360 import render_rays
+
+    # float32, TF32 off: the paths differ only in summation order (cuBLAS vs
+    # the CPU's GEMM over 1024-wide layers, warp scan vs cumsum), ~1e-6
+    # relative per layer; resampling moves t by the same relative amount.
+    # bfloat16: each layer's output is rounded to bf16 (8 bits, 4e-3
+    # relative), and a different f32 summation order flips that rounding for
+    # some units; the flips pass through 8 layers and both composites.
+    checks = [("float32", dict(rtol=1e-4, atol=1e-4)),
+              ("bfloat16", dict(rtol=2e-2, atol=2e-2))]
+    for dtype, tol in checks:
+        pcfg = dataclasses.replace(mcfg, compute_dtype=dtype)
+        outs = {}
+        for dev, p in (("cpu", params_cpu), ("cuda", params)):
+            r = rays_to_device(rays, dev)
+            with torch.inference_mode():
+                out = render_rays(p, pcfg, r, randomized=False)
+            outs[dev] = {k: out[k].float().cpu() for k in
+                         ("rgb", "distance", "acc", "weights", "t_vals")}
+        for k in outs["cpu"]:
+            a, b = outs["cuda"][k], outs["cpu"][k]
+            err = (a - b).abs().max().item()
+            ok = torch.allclose(a, b, **tol)
+            print(f"card vs cpu [{tag}, {dtype}] {k}: max_abs_err={err:.3e} "
+                  f"rtol={tol['rtol']} atol={tol['atol']} "
+                  f"{'ok' if ok else 'MISMATCH'}", flush=True)
+            if not ok:
+                _fail(f"card and CPU disagree on {k} in {dtype} ({tag})")
+
+
 def drive_train(cfg, composite, card: str, profile_dir):
     """Phase 6: joint-cadence train steps at full width on the card: one warm
     step, then TRAIN_STEPS timed steps with the kernels' counts set to 0
@@ -649,13 +733,67 @@ def _metric_records(ckpt: Path) -> list:
         return [json.loads(line) for line in f]
 
 
-def drive_trainer(cfg, composite, card: str, here: Path,
+def _cadences(cfg, sets) -> dict:
+    """The trainer's log, save and eval cadences under ``sets`` (K=V)."""
+    over = dict(s.split("=", 1) for s in sets)
+    return {k: int(over.get(f"train.{k}", getattr(cfg.train, k)))
+            for k in ("log_every", "save_every", "eval_every",
+                      "eval_image_every")}
+
+
+def _trainer_launches(cfg, every: dict, test, start: int, end: int):
+    """K1 and K2 launches of a trainer run from ``start`` to ``end``: two of
+    each per step; two K1 per forward of the eval_every batch, and per
+    render chunk of each view of the image eval (``eval_image_views`` of the
+    ``test`` split's views, all of them when -1)."""
+    crossings = lambda n: (end // n - start // n) if n else 0
+    k = cfg.train.eval_image_views
+    views = test.n_images if k <= 0 or k >= test.n_images else k
+    chunks = -(-test.h * test.w // cfg.train.eval_image_chunk)
+    k1 = (2 * (end - start) + 2 * crossings(every["eval_every"])
+          + 2 * views * chunks * crossings(every["eval_image_every"]))
+    return k1, 2 * (end - start)
+
+
+def _drive(label: str, composite, want, fn):
+    """``fn()`` with the kernels' launch counts set to 0 just before and
+    read just after; fails unless they are ``want`` (K1, K2). Returns (what
+    ``fn`` returned, (K1, K2), wall seconds)."""
+    composite.launches = composite.bwd_launches = 0
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = (composite.launches, composite.bwd_launches)
+    print(f"{label}: {wall:.1f} s, start-up included; K1 launches {got[0]}, "
+          f"K2 launches {got[1]} (expected {want[0]} and {want[1]})",
+          flush=True)
+    if got != tuple(want):
+        _fail(f"{label} launched K1 {got[0]} and K2 {got[1]} times, "
+              f"expected {tuple(want)}")
+    return out, got, wall
+
+
+def _clean_chunks(records: list, every: dict) -> list:
+    """(step, perf/rays_per_sec) of the logged chunks whose timing window
+    holds no eval and no save: those not right after a boundary where one
+    ran."""
+    chunks = [(r["step"], r["perf/rays_per_sec"]) for r in records
+              if "perf/rays_per_sec" in r]
+    busy = {s for s, _ in chunks for n in
+            ("save_every", "eval_every", "eval_image_every")
+            if every[n] and s % every[n] == 0}
+    return [(s, v) for s, v in chunks if s - every["log_every"] not in busy]
+
+
+def drive_trainer(cfg, composite, card: str, here: Path, work: Path,
                   step_rays_per_s: float, init_psnr: float):
     """Phase 8: the trainer path through ``apps.train.main`` in process, at
     full width: run A straight to TRAINER_STEPS, run B to half of it, then
     ``--resume`` to TRAINER_STEPS; then ``apps.eval.main`` on A. Each run
     is driven with the kernels' counts set to 0 just before and read just
-    after. Returns (K1, K2) launches of run A."""
+    after. Checkpoints go to ``work``/A and ``work``/B. Returns (K1, K2)
+    launches of run A."""
     from mipnerf360_torch import native
     from mipnerf360_torch.apps import eval as eval_app
     from mipnerf360_torch.apps import train as train_app
@@ -673,20 +811,10 @@ def drive_trainer(cfg, composite, card: str, here: Path,
         _fail(f"the train loop syncs with the host at {ours}")
 
     test = get_dataset(cfg.data, "test", white_bkgd=cfg.model.white_bkgd)
-    sets = dict(s.split("=", 1) for s in TRAINER_SETS)
-    every = {k: int(sets[f"train.{k}"]) for k in
-             ("log_every", "save_every", "eval_every", "eval_image_every")}
-    chunks_per_view = -(-test.h * test.w // cfg.train.eval_image_chunk)
+    every = _cadences(cfg, TRAINER_SETS)
 
     def expected(start: int, end: int):
-        """K1 and K2 launches of a run from ``start`` to ``end``: two of each
-        per step; two K1 per forward of the eval_every batch, and per render
-        chunk of each view of the image eval."""
-        crossings = lambda n: end // n - start // n
-        k1 = (2 * (end - start) + 2 * crossings(every["eval_every"])
-              + 2 * test.n_images * chunks_per_view
-              * crossings(every["eval_image_every"]))
-        return k1, 2 * (end - start)
+        return _trainer_launches(cfg, every, test, start, end)
 
     def run(name: str, ckpt: Path, steps: int, resume: bool = False):
         argv = ["--preset", "synthetic_quality",
@@ -697,20 +825,9 @@ def drive_trainer(cfg, composite, card: str, here: Path,
         start = 0
         if resume:
             start = max(r["step"] for r in _metric_records(ckpt))
-        composite.launches = composite.bwd_launches = 0
-        t0 = time.perf_counter()
-        state = train_app.main(argv)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        k1, k2 = composite.launches, composite.bwd_launches
-        want = expected(start, steps)
-        print(f"trainer run {name}: steps {start} -> {steps} in {wall:.1f} s "
-              f"(start-up, evals and saves included); K1 launches {k1}, K2 "
-              f"launches {k2} (expected {want[0]} and {want[1]})", flush=True)
-        if (k1, k2) != want:
-            _fail(f"trainer run {name} launched K1 {k1} and K2 {k2} times, "
-                  f"expected {want}")
-        return state, (k1, k2)
+        return _drive(f"trainer run {name} (steps {start} -> {steps})",
+                      composite, expected(start, steps),
+                      lambda: train_app.main(argv))
 
     def same_state(a, b) -> bool:
         tensors = lambda s: leaves(s.params) + [
@@ -724,81 +841,498 @@ def drive_trainer(cfg, composite, card: str, here: Path,
     print(f"trainer: batcher path {batcher}; {TRAINER_STEPS} steps of "
           f"{cfg.train.batch_size} rays, " + ", ".join(TRAINER_SETS),
           flush=True)
-    (here / "build").mkdir(exist_ok=True)
-    work = Path(tempfile.mkdtemp(prefix="chip_smoke_", dir=here / "build"))
-    try:
-        dir_a, dir_b = work / "A", work / "B"
-        half = TRAINER_STEPS // 2
-        state_a, launches_a = run("A", dir_a, TRAINER_STEPS)
-        state_b, _ = run("B", dir_b, half)
-        restored_b = restore_checkpoint(
-            str(dir_b), init_train_state(cfg.model, cfg.train, device="cuda"))
-        a_half = restore_checkpoint(
-            str(dir_a), init_train_state(cfg.model, cfg.train, device="cuda"),
-            step=half)
-        exact_b = same_state(restored_b, state_b) and torch.equal(
-            restored_b.generator.get_state(), state_b.generator.get_state())
-        equal_a = same_state(restored_b, a_half)
-        print(f"trainer: B's checkpoint at step {half} restores B's state "
-              f"{'exactly' if exact_b else 'NOT exactly'} (generator "
-              f"included); it equals A's ckpt_{half} "
-              f"{'exactly' if equal_a else 'NOT exactly'}", flush=True)
-        if not exact_b or not equal_a:
-            _fail(f"the step-{half} restore is not exact")
-        del state_b, restored_b, a_half
-        state_b, _ = run("B resumed", dir_b, TRAINER_STEPS, resume=True)
+    dir_a, dir_b = work / "A", work / "B"
+    half = TRAINER_STEPS // 2
+    state_a, launches_a, _ = run("A", dir_a, TRAINER_STEPS)
+    state_b, _, _ = run("B", dir_b, half)
+    restored_b = restore_checkpoint(
+        str(dir_b), init_train_state(cfg.model, cfg.train, device="cuda"))
+    a_half = restore_checkpoint(
+        str(dir_a), init_train_state(cfg.model, cfg.train, device="cuda"),
+        step=half)
+    exact_b = same_state(restored_b, state_b) and torch.equal(
+        restored_b.generator.get_state(), state_b.generator.get_state())
+    equal_a = same_state(restored_b, a_half)
+    print(f"trainer: B's checkpoint at step {half} restores B's state "
+          f"{'exactly' if exact_b else 'NOT exactly'} (generator "
+          f"included); it equals A's ckpt_{half} "
+          f"{'exactly' if equal_a else 'NOT exactly'}", flush=True)
+    if not exact_b or not equal_a:
+        _fail(f"the step-{half} restore is not exact")
+    del state_b, restored_b, a_half
+    state_b, _, _ = run("B resumed", dir_b, TRAINER_STEPS, resume=True)
 
-        rec_a, rec_b = _metric_records(dir_a), _metric_records(dir_b)
-        loss_a = {r["step"]: r["train/loss"] for r in rec_a if "train/loss" in r}
-        loss_b = {r["step"]: r["train/loss"] for r in rec_b if "train/loss" in r}
-        bad = [(s, v) for s, v in list(loss_a.items()) + list(loss_b.items())
-               if not np.isfinite(v)]
-        if bad or sorted(loss_a) != sorted(loss_b):
-            _fail(f"trainer losses not finite or not logged alike: {bad}, "
-                  f"{sorted(loss_a)} vs {sorted(loss_b)}")
-        print("trainer run A train/loss by step: " + ", ".join(
-            f"{s}: {v:.5f}" for s, v in sorted(loss_a.items())), flush=True)
-        after = [s for s in sorted(loss_a) if s > half]
-        rel = max(abs(loss_b[s] - loss_a[s]) / abs(loss_a[s]) for s in after)
-        identical = (all(loss_a[s] == loss_b[s] for s in loss_a)
-                     and same_state(state_a, state_b))
-        print(f"trainer: B's losses after the resume vs A's: largest relative "
-              f"difference {rel:.3e} (rtol {TRAINER_LOSS_RTOL}); the card ran "
-              f"A and B {'bit-identically' if identical else 'NOT bit-identically'}"
-              " (every logged loss and the final state)", flush=True)
-        if rel > TRAINER_LOSS_RTOL:
-            _fail("B's losses after the resume disagree with A's")
-        first, last = loss_a[min(loss_a)], loss_a[max(loss_a)]
-        if not last < first:
-            _fail(f"run A's loss did not fall: {first} -> {last}")
+    rec_a, rec_b = _metric_records(dir_a), _metric_records(dir_b)
+    loss_a = {r["step"]: r["train/loss"] for r in rec_a if "train/loss" in r}
+    loss_b = {r["step"]: r["train/loss"] for r in rec_b if "train/loss" in r}
+    bad = [(s, v) for s, v in list(loss_a.items()) + list(loss_b.items())
+           if not np.isfinite(v)]
+    if bad or sorted(loss_a) != sorted(loss_b):
+        _fail(f"trainer losses not finite or not logged alike: {bad}, "
+              f"{sorted(loss_a)} vs {sorted(loss_b)}")
+    print("trainer run A train/loss by step: " + ", ".join(
+        f"{s}: {v:.5f}" for s, v in sorted(loss_a.items())), flush=True)
+    after = [s for s in sorted(loss_a) if s > half]
+    rel = max(abs(loss_b[s] - loss_a[s]) / abs(loss_a[s]) for s in after)
+    identical = (all(loss_a[s] == loss_b[s] for s in loss_a)
+                 and same_state(state_a, state_b))
+    print(f"trainer: B's losses after the resume vs A's: largest relative "
+          f"difference {rel:.3e} (rtol {TRAINER_LOSS_RTOL}); the card ran "
+          f"A and B {'bit-identically' if identical else 'NOT bit-identically'}"
+          " (every logged loss and the final state)", flush=True)
+    if rel > TRAINER_LOSS_RTOL:
+        _fail("B's losses after the resume disagree with A's")
+    first, last = loss_a[min(loss_a)], loss_a[max(loss_a)]
+    if not last < first:
+        _fail(f"run A's loss did not fall: {first} -> {last}")
 
-        # Chunks whose timing window holds no eval and no save: those not
-        # right after a boundary where one ran.
-        busy = {s for s in loss_a for n in ("save_every", "eval_every",
-                                            "eval_image_every")
-                if s % every[n] == 0}
-        clean = [(r["step"], r["perf/rays_per_sec"]) for r in rec_a
-                 if "perf/rays_per_sec" in r
-                 and r["step"] - every["log_every"] not in busy]
-        trainer_rays = statistics.median(v for _, v in clean)
-        print(f"trainer perf/rays_per_sec, run A, chunks of "
-              f"{every['log_every']} steps without eval or save "
-              f"{[(s, round(v)) for s, v in clean]}: median {trainer_rays:.0f}"
-              f" rays/s, against {step_rays_per_s:.0f} rays/s for the bare "
-              f"step of phase 6 ({trainer_rays / step_rays_per_s:.3f}x); on "
-              f"{card}", flush=True)
+    clean = _clean_chunks(rec_a, every)
+    trainer_rays = statistics.median(v for _, v in clean)
+    print(f"trainer perf/rays_per_sec, run A, chunks of "
+          f"{every['log_every']} steps without eval or save "
+          f"{[(s, round(v)) for s, v in clean]}: median {trainer_rays:.0f}"
+          f" rays/s, against {step_rays_per_s:.0f} rays/s for the bare "
+          f"step of phase 6 ({trainer_rays / step_rays_per_s:.3f}x); on "
+          f"{card}", flush=True)
 
-        summary = eval_app.main(["--ckpt", str(dir_a), "--device", "cuda"])
-        print(f"eval of run A (step {summary['step']}): mean PSNR "
-              f"{summary['mean_psnr']:.3f} dB over {summary['n_views']} "
-              f"views, against {init_psnr:.3f} dB for phase 4's render at "
-              "random init", flush=True)
-        if (summary["n_views"] != test.n_images
-                or not summary["mean_psnr"] > init_psnr):
-            _fail("the eval after training is not above the random-init PSNR")
-    finally:
-        shutil.rmtree(work, ignore_errors=True)
+    summary = eval_app.main(["--ckpt", str(dir_a), "--device", "cuda"])
+    print(f"eval of run A (step {summary['step']}): mean PSNR "
+          f"{summary['mean_psnr']:.3f} dB over {summary['n_views']} "
+          f"views, against {init_psnr:.3f} dB for phase 4's render at "
+          "random init", flush=True)
+    if (summary["n_views"] != test.n_images
+            or not summary["mean_psnr"] > init_psnr):
+        _fail("the eval after training is not above the random-init PSNR")
     return launches_a
+
+
+def write_llff_capture(out: Path, n_views: int, w: int, h: int,
+                       factor: int) -> None:
+    """An LLFF-layout capture of the synthetic scene's analytic sphere on a
+    full orbit (the JAX package's ``tools/parity_psnr.py`` recipe, written
+    with the port's modules): ``images_<factor>/NNN.png`` of w x h with a
+    black background, and ``poses_bounds.npy``. The loader divides the
+    stored focal by ``factor``, so the file holds ``factor`` times the focal
+    of the written images; its rotation columns are [-up, right, back] (the
+    inverse of the loader's swap), and its bounds bracket the sphere."""
+    from mipnerf360_torch.data.rays_gen import pinhole_rays
+    from mipnerf360_torch.data.synthetic import (_orbit_poses_at,
+                                                 _shade_sphere, _train_angles)
+    from mipnerf360_torch.utils.png import save_png
+
+    focal = 0.9 * w
+    poses = _orbit_poses_at(_train_angles(n_views))
+    img_dir = out / f"images_{factor}"
+    img_dir.mkdir(parents=True)
+
+    def write(i):
+        rays = pinhole_rays(poses[i:i + 1], h, w, focal, 2.0, 6.0)
+        rgb = _shade_sphere(rays.origins[0], rays.viewdirs[0], background=0.0)
+        save_png(str(img_dir / f"{i:03d}.png"),
+                 np.clip(rgb * 255 + 0.5, 0, 255).astype(np.uint8))
+
+    with ThreadPoolExecutor(CAPTURE_WORKERS) as pool:
+        list(pool.map(write, range(n_views)))
+    rows = []
+    for pose in poses:
+        right, up, back, t = pose.T
+        hwf = np.array([h * factor, w * factor, focal * factor], np.float64)
+        d = float(np.linalg.norm(t))
+        rows.append(np.concatenate([
+            np.stack([-up, right, back, t, hwf], axis=1).reshape(-1),
+            [d - 1.3, d + 2.0]]))
+    np.save(out / "poses_bounds.npy", np.asarray(rows, np.float64))
+
+
+def write_blender_capture(out: Path, n_train: int, n_test: int,
+                          res: int) -> None:
+    """A Blender-layout capture of the analytic sphere: ``transforms_{train,
+    test}.json`` and res x res RGBA PNGs, alpha 255 on the sphere and 0
+    around it. The held-out views interleave with the train views on one
+    orbit (the JAX package's ``tools/parity_psnr.py`` recipe)."""
+    from mipnerf360_torch.data.rays_gen import pinhole_rays
+    from mipnerf360_torch.data.synthetic import (_orbit_poses_at,
+                                                 _shade_sphere, _train_angles)
+    from mipnerf360_torch.utils.png import save_png
+
+    focal = 0.9 * res
+    n_total = n_train + n_test
+    poses = _orbit_poses_at(_train_angles(n_total))
+    test_idx = sorted(set(np.linspace(0, n_total, n_test, endpoint=False)
+                          .astype(int).tolist()))
+    splits = {"train": [i for i in range(n_total) if i not in test_idx],
+              "test": test_idx}
+    jobs = [(split, j, i) for split, idx in splits.items()
+            for j, i in enumerate(idx)]
+
+    def write(job):
+        split, j, i = job
+        rays = pinhole_rays(poses[i:i + 1], res, res, focal, 2.0, 6.0)
+        rgb = _shade_sphere(rays.origins[0], rays.viewdirs[0], background=0.0)
+        # no lit sphere pixel is black: the albedo 0.5 * (n + 1) never is
+        alpha = np.where(rgb.any(-1, keepdims=True), 255, 0).astype(np.uint8)
+        rgb8 = np.clip(rgb * 255 + 0.5, 0, 255).astype(np.uint8)
+        save_png(str(out / split / f"r_{j}.png"),
+                 np.concatenate([rgb8, alpha], -1))
+
+    for split in splits:
+        (out / split).mkdir(parents=True)
+    with ThreadPoolExecutor(CAPTURE_WORKERS) as pool:
+        list(pool.map(write, jobs))
+    for split, idx in splits.items():
+        frames = []
+        for j, i in enumerate(idx):
+            c2w = np.eye(4)
+            c2w[:3, :4] = poses[i]
+            frames.append({"file_path": f"{split}/r_{j}",
+                           "transform_matrix": c2w.tolist()})
+        with open(out / f"transforms_{split}.json", "w") as f:
+            json.dump({"camera_angle_x": float(2 * np.arctan(0.5 * res / focal)),
+                       "frames": frames}, f)
+
+
+def _image_reader() -> str:
+    from mipnerf360_torch import native
+    from mipnerf360_torch.utils.png import pil_available
+
+    if pil_available():
+        return "PIL"
+    return ("the port's PNG decoder, "
+            + ("g++ unfilter" if native.native_available()
+               else "NumPy unfilter"))
+
+
+def drive_garden(composite, card: str, work: Path, step_rays_per_s: float):
+    """Phase 9: ``garden_quality`` at full width on an LLFF-layout capture
+    at garden's size at factor 8: load it, render a third of the held-out
+    views at random init (card against CPU on 128 of their rays),
+    ``apps.train`` (run A: host staging, as stage_mode=auto picks for this
+    bank; run B: the first GARDEN_BANK_STEPS with the bank on the card),
+    ``apps.eval --lpips`` on every held-out view, and ``apps.video --depth
+    --normals`` on the spherified orbit. Returns ({path: (K1, K2)}, (rendered view 0 at
+    random init, its target), the random LPIPS weights)."""
+    import resource
+
+    from mipnerf360_torch.apps import eval as eval_app
+    from mipnerf360_torch.apps import train as train_app
+    from mipnerf360_torch.apps import video as video_app
+    from mipnerf360_torch.apps.common import apply_overrides
+    from mipnerf360_torch.config import get_config
+    from mipnerf360_torch.core.rays import take_rays
+    from mipnerf360_torch.data import get_dataset
+    from mipnerf360_torch.data.llff import _load_images
+    from mipnerf360_torch.models.mipnerf360 import (init_model, map_params,
+                                                    render_image)
+    from mipnerf360_torch.utils import metrics
+    from mipnerf360_torch.utils.lpips import random_weights
+
+    capture = work / "garden"
+    t0 = time.perf_counter()
+    write_llff_capture(capture, GARDEN_VIEWS, GARDEN_W, GARDEN_H,
+                       GARDEN_FACTOR)
+    print(f"garden: capture of {GARDEN_VIEWS} views {GARDEN_W}x{GARDEN_H} "
+          f"(images_{GARDEN_FACTOR}, poses_bounds.npy) written in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    base = [f"data.base_dir={capture}"]
+    cfg = apply_overrides(get_config("garden_quality"), base)
+    mcfg = cfg.model
+    print(f"model: garden_quality, {mcfg.num_samples} samples/ray, proposal "
+          f"{mcfg.hidden_proposal}x{mcfg.proposal_depth}, nerf "
+          f"{mcfg.hidden_nerf}x{mcfg.nerf_depth}, {mcfg.ray_shape} rays, "
+          f"white_bkgd={mcfg.white_bkgd}, use_ndc={cfg.data.use_ndc}, "
+          f"{mcfg.compute_dtype} matmuls, {cfg.train.batch_size} rays/step",
+          flush=True)
+
+    # The host's load: every PNG decoded, then the rays of a split.
+    t0 = time.perf_counter()
+    n_png = _load_images(str(capture / f"images_{GARDEN_FACTOR}")).shape[0]
+    decode_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    test = get_dataset(cfg.data, "test", white_bkgd=mcfg.white_bkgd)
+    load_s = time.perf_counter() - t0
+    print(f"garden load, image reader {_image_reader()}: {n_png} PNGs "
+          f"decoded in {decode_s:.2f} s ({decode_s / n_png * 1e3:.1f} ms "
+          f"each); the test split ({test.n_images} views, {test.n_rays} "
+          f"rays, near {test.near:.4f}, far {test.far:.4f}) in {load_s:.2f} "
+          f"s with the decode, {(load_s - decode_s) / test.n_images * 1e3:.1f}"
+          " ms of ray generation per view", flush=True)
+    if (test.n_images, test.h, test.w) != (
+            len(range(0, GARDEN_VIEWS, 8)), GARDEN_H, GARDEN_W):
+        _fail(f"garden test split {test.n_images} views {test.h}x{test.w}")
+    n_train = GARDEN_VIEWS - test.n_images
+    chunks_per_view = -(-test.h * test.w // cfg.train.eval_image_chunk)
+
+    # Every GARDEN_INIT_STRIDE-th held-out view at random init (the
+    # trainer's init: same seed).
+    params_cpu = init_model(mcfg, torch.Generator().manual_seed(
+        cfg.train.seed))
+    params = map_params(lambda p: p.cuda(), params_cpu)
+    hw = test.h * test.w
+    init_views = np.arange(0, test.n_images, GARDEN_INIT_STRIDE)
+    init_rays = take_rays(test.rays, (init_views[:, None] * hw
+                                      + np.arange(hw)).reshape(-1))
+    n_init_rays = len(init_views) * hw
+    n_chunks = -(-n_init_rays // cfg.train.eval_image_chunk)
+    (rgb, _, _), launches_init, dt = _drive(
+        f"garden render of held-out views {init_views.tolist()} at random "
+        f"init, chunk {cfg.train.eval_image_chunk}", composite,
+        (2 * n_chunks, 0),
+        lambda: render_image(params, mcfg, init_rays,
+                             chunk=cfg.train.eval_image_chunk, device="cuda"))
+    views = (-1, test.h, test.w, 3)
+    rgb = rgb.cpu().numpy().reshape(views)
+    targets = test.pixels.reshape(views)[init_views]
+    if not np.isfinite(rgb).all():
+        _fail("garden render at random init is not finite")
+    init_psnr = float(np.mean([metrics.psnr(a, b) for a, b in
+                               zip(rgb, targets)]))
+    print(f"garden render at random init: {n_init_rays / dt:.0f} rays/s "
+          f"({n_init_rays} rays, {len(init_views)} views of "
+          f"{GARDEN_W}x{GARDEN_H}, first call); mean PSNR {init_psnr:.3f} "
+          f"dB; on {card}", flush=True)
+    idx = np.random.default_rng(9).choice(n_init_rays, PARITY_RAYS,
+                                          replace=False)
+    check_render_card_vs_cpu(mcfg, params_cpu, params,
+                             take_rays(init_rays, idx), "garden_quality")
+    lpips_view = (rgb[0], targets[0])
+    del params, params_cpu, rgb, init_rays
+
+    every = _cadences(cfg, GARDEN_SETS)
+
+    def run(name: str, ckpt: Path, steps: int, extra=()):
+        argv = ["--preset", "garden_quality", "--device", "cuda",
+                "--set", f"train.checkpoint_dir={ckpt}",
+                "--set", f"train.max_steps={steps}"]
+        argv += [a for s in base + GARDEN_SETS + list(extra)
+                 for a in ("--set", s)]
+        torch.cuda.reset_peak_memory_stats()
+        _, got, wall = _drive(
+            f"garden trainer run {name} (steps 0 -> {steps})", composite,
+            _trainer_launches(cfg, every, test, 0, steps),
+            lambda: train_app.main(argv))
+        recs = _metric_records(ckpt)
+        staging = [r for r in recs if "data/device_bank" in r][0]
+        print(f"garden trainer run {name}: staging "
+              f"{'device bank' if staging['data/device_bank'] else 'host'} "
+              f"({staging['data/train_bytes'] / 2**30:.3f} GiB of train "
+              f"rays and pixels, {n_train} views); peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
+              flush=True)
+        return recs, got, staging["data/device_bank"]
+
+    dir_a, dir_b = work / "garden_A", work / "garden_B"
+    rec_a, launches_a, bank_a = run("A", dir_a, GARDEN_STEPS)
+    rec_b, launches_b, bank_b = run(
+        "B", dir_b, GARDEN_BANK_STEPS, ["train.stage_mode=device_bank"])
+    if bank_a or not bank_b:
+        _fail("stage_mode=auto did not stage from the host, or device_bank "
+              "did not use the bank")
+    loss_a = {r["step"]: r["train/loss"] for r in rec_a if "train/loss" in r}
+    loss_b = {r["step"]: r["train/loss"] for r in rec_b if "train/loss" in r}
+    if not all(np.isfinite(v) for v in list(loss_a.values())
+               + list(loss_b.values())):
+        _fail("garden trainer losses are not finite")
+    print("garden trainer run A train/loss by step: " + ", ".join(
+        f"{s}: {v:.5f}" for s, v in sorted(loss_a.items())), flush=True)
+    if not loss_a[max(loss_a)] < loss_a[min(loss_a)]:
+        _fail("garden run A's loss did not fall")
+    rel = max(abs(loss_b[s] - loss_a[s]) / abs(loss_a[s]) for s in loss_b)
+    identical = all(loss_b[s] == loss_a[s] for s in loss_b)
+    print(f"garden: the bank run's losses at steps {sorted(loss_b)} against "
+          f"host staging's: largest relative difference {rel:.3e} (rtol "
+          f"{TRAINER_LOSS_RTOL}), "
+          f"{'bit-identical' if identical else 'NOT bit-identical'}",
+          flush=True)
+    if rel > TRAINER_LOSS_RTOL:
+        _fail("host staging and the bank give different losses")
+    clean_a, clean_b = _clean_chunks(rec_a, every), _clean_chunks(rec_b, every)
+    host_rays = statistics.median(v for _, v in clean_a)
+    print(f"garden trainer perf/rays_per_sec, chunks of {every['log_every']} "
+          f"steps without eval or save: host staging (run A) "
+          f"{[(s, round(v)) for s, v in clean_a]}, median {host_rays:.0f}; "
+          f"the bank (run B) {[(s, round(v)) for s, v in clean_b]}; the bare "
+          f"step of phase 6 {step_rays_per_s:.0f} rays/s (host staging "
+          f"{host_rays / step_rays_per_s:.3f}x); on {card}", flush=True)
+
+    weights = random_weights(torch.Generator().manual_seed(0))
+    npz = work / "lpips_random_weights.npz"
+    np.savez(npz, **{k: v.numpy() for k, v in weights.items()})
+    summary, launches_eval, wall = _drive(
+        f"garden apps.eval --lpips (random weights) on all {test.n_images} "
+        "held-out views", composite,
+        (2 * test.n_images * chunks_per_view, 0),
+        lambda: eval_app.main(["--ckpt", str(dir_a), "--lpips", str(npz),
+                               "--device", "cuda"]))
+    eval_psnr = float(np.mean(
+        [summary["per_view_psnr"][v] for v in init_views]))
+    print(f"garden eval of run A (step {summary['step']}): mean PSNR "
+          f"{summary['mean_psnr']:.3f} dB, SSIM {summary['mean_ssim']:.4f}, "
+          f"LPIPS of random VGG weights (not LPIPS) "
+          f"{summary['mean_lpips']:.4f} over {summary['n_views']} views; "
+          f"{eval_psnr:.3f} dB on views {init_views.tolist()} against "
+          f"{init_psnr:.3f} dB at random init; "
+          f"{test.n_rays / wall:.0f} rays/s over the whole app (load, "
+          "render, PNGs, metrics)", flush=True)
+    if (summary["n_views"] != test.n_images
+            or not eval_psnr > init_psnr
+            or not np.isfinite(summary["mean_lpips"])):
+        _fail("the garden eval is not above the random-init PSNR")
+
+    video, launches_video, wall = _drive(
+        f"garden apps.video --depth --normals, {GARDEN_VIDEO_POSES} poses",
+        composite, (2 * GARDEN_VIDEO_POSES * chunks_per_view, 0),
+        lambda: video_app.main([
+            "--ckpt", str(dir_a), "--depth", "--normals", "--device", "cuda",
+            "--set", f"data.n_render_poses={GARDEN_VIDEO_POSES}"]))
+    _check_video(video, GARDEN_VIDEO_POSES, (GARDEN_H, GARDEN_W), "garden",
+                 card)
+    rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+    print(f"garden: peak host RSS of this process so far {rss:.2f} GiB",
+          flush=True)
+    launches = {"garden_init_render": launches_init,
+                "garden_trainer_host": launches_a,
+                "garden_trainer_bank": launches_b,
+                "garden_eval": launches_eval, "garden_video": launches_video}
+    return launches, lpips_view, weights
+
+
+def _check_video(video: dict, n_frames: int, hw, tag: str, card: str):
+    print(f"{tag} video: {video['n_frames']} frames of {video['h']}x"
+          f"{video['w']}, {video['rays_per_sec']:.0f} rays/s over the render "
+          f"loop; written: " + ", ".join(f"{k} -> {Path(v).name}" for k, v in
+                                         video["outputs"].items())
+          + f"; on {card}", flush=True)
+    if (video["n_frames"], (video["h"], video["w"])) != (n_frames, tuple(hw)):
+        _fail(f"{tag} video: {video['n_frames']} frames of {video['h']}x"
+              f"{video['w']}")
+    for name, path in video["outputs"].items():
+        if not Path(path).exists():
+            _fail(f"{tag} video: {name} not written")
+
+
+def drive_lego(composite, card: str, work: Path):
+    """Phase 10: ``blender_lego_quality`` at full width on a Blender-layout
+    capture: ``apps.train`` for LEGO_STEPS steps, then ``apps.video`` on
+    LEGO_VIDEO_POSES poses of the synthesized 800x800 render path. Returns
+    {path: (K1, K2)}."""
+    from mipnerf360_torch.apps import train as train_app
+    from mipnerf360_torch.apps import video as video_app
+    from mipnerf360_torch.config import get_config
+
+    capture = work / "lego"
+    t0 = time.perf_counter()
+    write_blender_capture(capture, LEGO_TRAIN, LEGO_TEST, LEGO_RES)
+    print(f"lego: capture of {LEGO_TRAIN} + {LEGO_TEST} RGBA views "
+          f"{LEGO_RES}x{LEGO_RES} written in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    cfg = get_config("blender_lego_quality")
+    ckpt = work / "lego_A"
+    argv = ["--preset", "blender_lego_quality", "--device", "cuda",
+            "--set", f"data.base_dir={capture}",
+            "--set", f"train.checkpoint_dir={ckpt}",
+            "--set", f"train.max_steps={LEGO_STEPS}",
+            "--set", "train.lr_max_steps=10000"]
+    torch.cuda.reset_peak_memory_stats()
+    every = _cadences(cfg, [])
+    test = SimpleNamespace(n_images=LEGO_TEST, h=LEGO_RES // 2,
+                           w=LEGO_RES // 2)
+    _, launches_train, wall = _drive(
+        f"lego trainer (blender_lego_quality, factor {cfg.data.factor}, "
+        f"steps 0 -> {LEGO_STEPS})", composite,
+        _trainer_launches(cfg, every, test, 0, LEGO_STEPS),
+        lambda: train_app.main(argv))
+    recs = _metric_records(ckpt)
+    staging = [r for r in recs if "data/device_bank" in r][0]
+    losses = [(r["step"], r["train/loss"]) for r in recs if "train/loss" in r]
+    if not losses or not all(np.isfinite(v) for _, v in losses):
+        _fail(f"lego trainer losses {losses}")
+    print(f"lego trainer: staging "
+          f"{'device bank' if staging['data/device_bank'] else 'host'} "
+          f"({staging['data/train_bytes'] / 2**30:.3f} GiB); train/loss "
+          f"{losses}; rays/s by chunk "
+          f"{[round(r['perf/rays_per_sec']) for r in recs if 'perf/rays_per_sec' in r]}"
+          f"; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+
+    chunks = -(-cfg.data.render_h * cfg.data.render_w // 8192)
+    video, launches_video, _ = _drive(
+        f"lego apps.video, {LEGO_VIDEO_POSES} poses of the "
+        f"{cfg.data.render_w}x{cfg.data.render_h} render path", composite,
+        (2 * LEGO_VIDEO_POSES * chunks, 0),
+        lambda: video_app.main([
+            "--ckpt", str(ckpt), "--device", "cuda",
+            "--set", f"data.n_render_poses={LEGO_VIDEO_POSES}"]))
+    _check_video(video, LEGO_VIDEO_POSES,
+                 (cfg.data.render_h, cfg.data.render_w), "lego", card)
+    return {"lego_trainer": launches_train, "lego_video": launches_video}
+
+
+def drive_small(composite, card: str, work: Path, lpips_view, weights):
+    """Phase 11: ``apps.video`` on phase 8's run A (the synthetic render
+    split), the port's PNG decoder against the loaders' reader on garden
+    views, LPIPS on the card against the CPU on one garden view, and
+    ``checkify_fn`` on the card. Returns {path: (K1, K2)}."""
+    from mipnerf360_torch import native
+    from mipnerf360_torch.apps import video as video_app
+    from mipnerf360_torch.config import get_config
+    from mipnerf360_torch.utils.checks import NonFiniteError, checkify_fn
+    from mipnerf360_torch.utils.lpips import lpips
+
+    data = get_config("synthetic_quality").data
+    n, res = data.synthetic_views, data.synthetic_resolution
+    video, launches, _ = _drive(
+        f"synthetic apps.video on phase 8's run A, {n} poses", composite,
+        (2 * n * -(-res * res // 8192), 0),
+        lambda: video_app.main(["--ckpt", str(work / "A"), "--device",
+                                "cuda"]))
+    _check_video(video, n, (res, res), "synthetic", card)
+
+    # The port's own PNG decoder against the reader the loaders used, on
+    # the garden capture's first views.
+    from mipnerf360_torch.utils.png import load_image, read_png
+
+    pngs = sorted((work / "garden" / f"images_{GARDEN_FACTOR}").iterdir())
+    pngs = pngs[:PNG_CHECK_VIEWS]
+    t0 = time.perf_counter()
+    ours = [read_png(str(f)).astype(np.float32) / 255.0 for f in pngs]
+    ours_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    theirs = [load_image(str(f)) for f in pngs]
+    theirs_s = time.perf_counter() - t0
+    same = all(np.array_equal(a, b) for a, b in zip(ours, theirs))
+    unfilter = "g++" if native.native_available() else "NumPy"
+    print(f"PNG: the port's decoder ({unfilter} unfilter) on {len(pngs)} "
+          f"garden views: {ours_s / len(pngs) * 1e3:.1f} ms "
+          f"each, {_image_reader()} {theirs_s / len(pngs) * 1e3:.1f} ms "
+          f"each; arrays {'identical' if same else 'DIFFERENT'}", flush=True)
+    if not same:
+        _fail("the port's PNG decoder disagrees with the loaders' reader")
+
+    img, ref = lpips_view
+    cpu = float(lpips(img, ref, weights))
+    on_card = {k: v.cuda() for k, v in weights.items()}
+    got = float(lpips(torch.as_tensor(img, device="cuda"), ref, on_card))
+    rel = abs(got - cpu) / abs(cpu)
+    print(f"LPIPS (random VGG weights) of garden view 0 at random init, "
+          f"{img.shape[1]}x{img.shape[0]}: card {got:.8f}, cpu {cpu:.8f}, "
+          f"relative difference {rel:.3e} (rtol {LPIPS_RTOL}, TF32 off)",
+          flush=True)
+    if not rel <= LPIPS_RTOL:
+        _fail("LPIPS on the card disagrees with the CPU")
+
+    x = torch.tensor([1.0, 4.0], device="cuda")
+    try:
+        checkify_fn(lambda t: torch.log(t - 2.0))(x)
+    except NonFiniteError as e:
+        caught = str(e)
+    else:
+        _fail("checkify_fn let a NaN through on the card")
+    ok = checkify_fn(lambda t: torch.sqrt(t) * 2.0)(x)
+    if not torch.equal(ok, torch.sqrt(x) * 2.0):
+        _fail("checkify_fn changed a finite result on the card")
+    print(f"checkify_fn on the card: raised '{caught}' on log(x - 2); "
+          "returned sqrt(x) * 2 unchanged", flush=True)
+    return {"synthetic_video": launches}
 
 
 def main() -> int:
@@ -820,10 +1354,10 @@ def main() -> int:
     sys.path.insert(0, str(here))
     import mipnerf360_torch
     from mipnerf360_torch.config import get_config
-    from mipnerf360_torch.core.rays import rays_to_device, take_rays
+    from mipnerf360_torch.core.rays import take_rays
     from mipnerf360_torch.data.synthetic import synthetic_dataset
     from mipnerf360_torch.models.mipnerf360 import (init_model, map_params,
-                                                    render_image, render_rays)
+                                                    render_image)
     from mipnerf360_torch.ops import _build, composite
     from mipnerf360_torch.utils import metrics
 
@@ -916,33 +1450,9 @@ def main() -> int:
 
     # Phase 5: the card against the CPU on the whole path, first rays of the
     # test split, same params.
-    sub = take_rays(test.rays, slice(0, PARITY_RAYS))
-    # float32, TF32 off: the paths differ only in summation order (cuBLAS vs
-    # the CPU's GEMM over 1024-wide layers, warp scan vs cumsum), ~1e-6
-    # relative per layer; resampling moves t by the same relative amount.
-    # bfloat16: each layer's output is rounded to bf16 (8 bits, 4e-3
-    # relative), and a different f32 summation order flips that rounding for
-    # some units; the flips pass through 8 layers and both composites.
-    checks = [("float32", dict(rtol=1e-4, atol=1e-4)),
-              ("bfloat16", dict(rtol=2e-2, atol=2e-2))]
-    for dtype, tol in checks:
-        pcfg = dataclasses.replace(mcfg, compute_dtype=dtype)
-        outs = {}
-        for dev, p in (("cpu", params_cpu), ("cuda", params)):
-            r = rays_to_device(sub, dev)
-            with torch.inference_mode():
-                out = render_rays(p, pcfg, r, randomized=False)
-            outs[dev] = {k: out[k].float().cpu() for k in
-                         ("rgb", "distance", "acc", "weights", "t_vals")}
-        for k in outs["cpu"]:
-            a, b = outs["cuda"][k], outs["cpu"][k]
-            err = (a - b).abs().max().item()
-            ok = torch.allclose(a, b, **tol)
-            print(f"card vs cpu [{dtype}] {k}: max_abs_err={err:.3e} "
-                  f"rtol={tol['rtol']} atol={tol['atol']} "
-                  f"{'ok' if ok else 'MISMATCH'}", flush=True)
-            if not ok:
-                _fail(f"card and CPU disagree on {k} in {dtype}")
+    check_render_card_vs_cpu(mcfg, params_cpu, params,
+                             take_rays(test.rays, slice(0, PARITY_RAYS)),
+                             "synthetic_quality")
 
     # Phase 6 and 7: the train path at full width, then card against CPU.
     k1_train, k2_train, step_rays_per_s, trace = drive_train(
@@ -959,9 +1469,25 @@ def main() -> int:
                   f"{k['ms'] * 1e3:.3f} us, cold {k['cold_ms'] * 1e3:.3f} us "
                   "in the graph", flush=True)
 
-    # Phase 8: the trainer and the entry points, train -> resume -> eval.
-    k1_trainer, k2_trainer = drive_trainer(cfg, composite, card, here,
-                                           step_rays_per_s, init_psnr)
+    # Phases 8-11 keep their checkpoints and captures in one temporary
+    # directory under build/, deleted at the end.
+    (here / "build").mkdir(exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_", dir=here / "build"))
+    try:
+        # Phase 8: the trainer and the entry points, train -> resume -> eval.
+        trainer = drive_trainer(cfg, composite, card, here, work,
+                                step_rays_per_s, init_psnr)
+        # Phase 9: garden_quality on a capture of garden's size.
+        paths, lpips_view, weights = drive_garden(composite, card, work,
+                                                  step_rays_per_s)
+        # Phase 10: blender_lego_quality on a Blender-layout capture.
+        paths.update(drive_lego(composite, card, work))
+        # Phase 11: the synthetic video, LPIPS and checkify_fn on the card.
+        paths.update(drive_small(composite, card, work, lpips_view, weights))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    paths = {"render": (k1_render, k2_render), "train": (k1_train, k2_train),
+             "trainer": trainer, **paths}
 
     def entry(name, replaces, k, by_path):
         return {"name": name, "route": "cuda",
@@ -978,11 +1504,9 @@ def main() -> int:
 
     record = {"kernels": [
         entry("K1_composite_fwd", "mipnerf360_tpu/ops/pallas/composite.py:46",
-              k1, {"render": k1_render, "train": k1_train,
-                   "trainer": k1_trainer}),
+              k1, {name: k[0] for name, k in paths.items()}),
         entry("K2_composite_bwd", "mipnerf360_tpu/ops/pallas/composite.py:59",
-              k2, {"render": k2_render, "train": k2_train,
-                   "trainer": k2_trainer}),
+              k2, {name: k[1] for name, k in paths.items()}),
     ]}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {

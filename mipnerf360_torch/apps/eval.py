@@ -1,9 +1,9 @@
 """Holdout-view evaluation CLI (counterpart of ``mipnerf360_tpu/apps/eval.py``).
 
 Renders every held-out view, writes rgb (+ optional depth/normal) PNGs, and
-reports per-image and mean PSNR (per-pixel mean squared error) and SSIM,
-with ``eval.json`` beside the PNGs. Reads the port's checkpoints and the JAX
-package's.
+reports per-image and mean PSNR (per-pixel mean squared error), SSIM, and
+with ``--lpips <weights.npz>`` LPIPS, with ``eval.json`` beside the PNGs.
+Reads the port's checkpoints and the JAX package's.
 
     python -m mipnerf360_torch.apps.eval --ckpt ckpt/ [--device cpu]
 """
@@ -12,10 +12,9 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import struct
-import zlib
 
 import numpy as np
+import torch
 
 from ..core.rays import rays_to_device, resolve_device
 from ..data import get_dataset
@@ -25,29 +24,9 @@ from ..train.checkpoint import restore_checkpoint
 from ..train.state import init_train_state
 from ..train.trainer import BackgroundStager
 from ..utils import metrics
+from ..utils.lpips import load_weights, lpips
+from ..utils.png import save_png
 from .common import add_config_args, config_from_args
-
-
-def _png_chunk(kind: bytes, data: bytes) -> bytes:
-    return (struct.pack(">I", len(data)) + kind + data
-            + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
-
-
-def save_png(path: str, img_u8: np.ndarray):
-    """Write an [H, W, 3] uint8 image as an 8-bit RGB PNG, with the standard
-    library only (one IDAT chunk, no row filters)."""
-    img = np.ascontiguousarray(img_u8, dtype=np.uint8)
-    if img.ndim != 3 or img.shape[2] != 3:
-        raise ValueError(f"expected an [H, W, 3] image, got {img.shape}")
-    h, w = img.shape[:2]
-    rows = img.reshape(h, -1)
-    raw = b"".join(b"\x00" + rows[i].tobytes() for i in range(h))
-    with open(path, "wb") as f:
-        f.write(b"\x89PNG\r\n\x1a\n")
-        f.write(_png_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2,
-                                                0, 0, 0)))
-        f.write(_png_chunk(b"IDAT", zlib.compress(raw, 6)))
-        f.write(_png_chunk(b"IEND", b""))
 
 
 def main(argv=None):
@@ -66,12 +45,12 @@ def main(argv=None):
     ap.add_argument("--depth", action="store_true", help="write depth viz")
     ap.add_argument("--normals", action="store_true", help="write normal viz")
     ap.add_argument("--lpips", default="",
-                    help="path to lpips_vgg.npz (not ported yet)")
+                    help="path to lpips_vgg.npz (the JAX package's "
+                         "tools/export_lpips_weights.py writes it). LPIPS "
+                         "needs pretrained VGG weights, which the repo does "
+                         "not ship; without the file only PSNR/SSIM are "
+                         "reported.")
     args = ap.parse_args(argv)
-    if args.lpips:
-        raise NotImplementedError(
-            "--lpips is not ported yet (utils/lpips.py, ROADMAP queue 1 "
-            "item 9); without it PSNR and SSIM are reported")
     device = resolve_device(args.device)
 
     # Resolve the checkpoint dir first, so that its saved config.json
@@ -88,7 +67,12 @@ def main(argv=None):
     print(f"restored step={state.step} from {ckpt_dir}")
 
     ds = get_dataset(cfg.data, "test", white_bkgd=cfg.model.white_bkgd)
-    print("LPIPS: not ported; reporting PSNR/SSIM only")
+    lpips_weights = None
+    if args.lpips:
+        lpips_weights = {k: torch.as_tensor(v, device=device)
+                         for k, v in load_weights(args.lpips).items()}
+    else:
+        print("LPIPS: no --lpips weights file; reporting PSNR/SSIM only")
 
     # The next view's rays go to the device while the current one renders.
     def _stage(i):
@@ -96,7 +80,7 @@ def main(argv=None):
         return rays_to_device(rays_np, device), pix
 
     stager = BackgroundStager(_stage, range(ds.n_images), depth=2)
-    psnrs, ssims = [], []
+    psnrs, ssims, lpipss = [], [], []
     try:  # finally-close so a render failure can't leak the staging thread
         for i in range(ds.n_images):
             rays, pix = stager.get()
@@ -125,6 +109,11 @@ def main(argv=None):
                 line = f"[{i + 1}/{ds.n_images}] PSNR={psnr:.2f}"
                 if s is not None:
                     line += f" SSIM={s:.4f}"
+                if lpips_weights is not None:
+                    lp = float(lpips(torch.as_tensor(rgb, device=device),
+                                     target, lpips_weights))
+                    lpipss.append(lp)
+                    line += f" LPIPS={lp:.4f}"
                 print(line)
     finally:
         stager.close()
@@ -142,6 +131,9 @@ def main(argv=None):
         print(f"mean SSIM over {len(ssims)} views: {np.mean(ssims):.4f}")
         summary["mean_ssim"] = float(np.mean(ssims))
         summary["per_view_ssim"] = [float(s) for s in ssims]
+    if lpipss:
+        print(f"mean LPIPS over {len(lpipss)} views: {np.mean(lpipss):.4f}")
+        summary["mean_lpips"] = float(np.mean(lpipss))
     with open(os.path.join(out_dir, "eval.json"), "w") as f:
         json.dump(summary, f, indent=2)
     print(f"wrote {os.path.join(out_dir, 'eval.json')}")

@@ -1,16 +1,18 @@
-"""Dataset container (host-side NumPy; counterpart of
+"""Dataset containers (host-side NumPy; counterpart of
 ``mipnerf360_tpu/data/base.py``).
 
-Rays for all images are generated once and flattened to [N, c] arrays;
-training batches are gathers from the stateless index stream of the native
-batcher, and eval iterates whole images. Moving batches to the card happens
-in the trainer. The process-local ``*_local`` variants and the lazy render
-split come with the parallel and data slices.
+``RayDataset``: rays for all images are generated once and flattened to
+[N, c] arrays; training batches are gathers from the stateless index stream
+of the native batcher, and eval iterates whole images. Moving batches to
+the card happens in the trainer. ``LazyRenderDataset``: the pixel-less
+render split, whose rays are generated one pose at a time. The
+process-local ``*_local`` variants come with the parallel slice (ROADMAP
+queue 1 item 10).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Iterator, Optional, Tuple
+from typing import Callable, Iterator, Optional, Tuple
 
 import numpy as np
 
@@ -74,6 +76,48 @@ class RayDataset:
         rays = rays_map(lambda x: x[sl], self.rays)
         pix = self.pixels[sl] if self.pixels is not None else None
         return rays, pix
+
+    def images(self):
+        for i in range(self.n_images):
+            yield self.image(i)
+
+
+@dataclass
+class LazyRenderDataset:
+    """Pixel-less render split that generates each pose's rays on demand.
+
+    A materialized render split would hold every pose's rays in host memory
+    at once (a 120-pose factor-4 nerf_360 render is ~5 GB of rays); the
+    video renderer touches one pose at a time, so ``image(i)`` generates
+    pose i's rays when asked. The ``rays`` property materializes the whole
+    split, for callers that want the flat arrays.
+    """
+    poses: np.ndarray          # [P, 3, 4] camera-to-world
+    ray_fn: Callable[[np.ndarray], Rays]   # [k, 3, 4] -> flat [k*H*W, c]
+    h: int
+    w: int
+    near: float
+    far: float
+    pixels: Optional[np.ndarray] = None   # always None (no ground truth)
+
+    @property
+    def n_images(self) -> int:
+        return self.poses.shape[0]
+
+    @property
+    def n_rays(self) -> int:
+        return self.n_images * self.h * self.w
+
+    @property
+    def rays(self) -> Rays:
+        return self.ray_fn(self.poses)
+
+    def image(self, i: int) -> Tuple[Rays, None]:
+        return self.ray_fn(self.poses[i:i + 1]), None
+
+    def images(self):
+        for i in range(self.n_images):
+            yield self.image(i)
 
 
 def flatten_images(rays: Rays, images: Optional[np.ndarray]) -> Tuple[Rays, Optional[np.ndarray]]:

@@ -1,9 +1,10 @@
-"""Pinhole ray generation (host-side NumPy; counterpart of
-``mipnerf360_tpu/data/rays_gen.py``). NDC rays come with the LLFF loader."""
+"""Pinhole and NDC ray generation (host-side NumPy; counterpart of
+``mipnerf360_tpu/data/rays_gen.py``). Runs once when a dataset is built."""
 from __future__ import annotations
 
 import numpy as np
 
+from ..core.ndc import convert_to_ndc
 from ..core.rays import Rays
 
 
@@ -39,6 +40,27 @@ def pinhole_rays(cam_to_world, h: int, w: int, focal: float,
         origins=origins.astype(np.float32),
         directions=directions.astype(np.float32),
         viewdirs=viewdirs.astype(np.float32),
+        radii=radii.astype(np.float32),
+        near=(ones * near).astype(np.float32),
+        far=(ones * far).astype(np.float32),
+    )
+
+
+def ndc_rays(rays: Rays, focal: float, w: int, h: int,
+             near: float, far: float) -> Rays:
+    """Project [P, H, W, c] pinhole rays into NDC and recompute the
+    footprint radii from both the x and the y neighbours."""
+    o, d = convert_to_ndc(rays.origins, rays.directions, focal, w, h)
+    dx = np.sqrt(np.sum((o[:, :-1] - o[:, 1:]) ** 2, -1))
+    dx = np.concatenate([dx, dx[:, -2:-1, :]], 1)
+    dy = np.sqrt(np.sum((o[:, :, :-1] - o[:, :, 1:]) ** 2, -1))
+    dy = np.concatenate([dy, dy[:, :, -2:-1]], 2)
+    radii = (0.5 * (dx + dy))[..., None] * 2.0 / np.sqrt(12.0)
+    ones = np.ones_like(o[..., :1])
+    return Rays(
+        origins=o.astype(np.float32),
+        directions=d.astype(np.float32),
+        viewdirs=rays.viewdirs,
         radii=radii.astype(np.float32),
         near=(ones * near).astype(np.float32),
         far=(ones * far).astype(np.float32),

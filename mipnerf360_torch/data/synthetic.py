@@ -3,16 +3,15 @@
 
 A shaded sphere at the origin, rendered analytically from cameras on a
 tilted circle: a geometrically consistent scene that needs no data on disk.
-The train and test splits give the same arrays as the JAX package's; the
-lazy render split comes with the render splits.
+Every split gives the same arrays as the JAX package's.
 """
 from __future__ import annotations
 
 import numpy as np
 
 from ..config import DataConfig
-from .base import RayDataset, flatten_images
-from .pose import look_at, normalize
+from .base import LazyRenderDataset, RayDataset, flatten_images
+from .pose import look_at, normalize, spherical_path
 from .rays_gen import pinhole_rays
 
 
@@ -73,13 +72,24 @@ def _shade_sphere(origins, viewdirs, sphere_radius: float = 1.0,
 
 
 def synthetic_dataset(cfg: DataConfig, split: str = "train",
-                      background: float = 1.0) -> RayDataset:
-    if split not in ("train", "test"):
-        raise NotImplementedError(
-            f"synthetic split {split!r}: only 'train' and 'test' are ported")
+                      background: float = 1.0):
     res = cfg.synthetic_resolution
     n_views = cfg.synthetic_views
     focal = 0.9 * res
+    if split == "render":
+        # A spherical orbit at the scene's own resolution and focal (the
+        # scene is a 360 orbit; the spiral path is for forward-facing
+        # scenes), generated one pose at a time.
+        poses = spherical_path(cfg.render_radius, n_views)[:, :3, :4]
+        poses = np.ascontiguousarray(poses, dtype=np.float32)
+
+        def ray_fn(p):
+            rays = pinhole_rays(p, res, res, focal, cfg.near, cfg.far)
+            return flatten_images(rays, None)[0]
+
+        return LazyRenderDataset(poses=poses, ray_fn=ray_fn, h=res, w=res,
+                                 near=cfg.near, far=cfg.far)
+    # train and test orbit angles interleave and never coincide
     angles = (_train_angles(n_views) if split == "train"
               else _test_angles(n_views))
     n = len(angles)

@@ -187,7 +187,8 @@ def render_rays(params: Params, cfg: ModelConfig, rays: Rays, randomized: bool,
     """
     if cfg.sample_shards > 1:
         raise NotImplementedError(
-            "sample_shards > 1 (the sample-axis composite) is not ported yet")
+            "sample_shards > 1 (the sample-axis composite) is not ported "
+            "yet (ROADMAP queue 1 item 10)")
     n_prop, n_nerf = (None, None) if noise is None else noise
     t_prop, w_prop = prop_forward(params, cfg, rays, randomized,
                                   noise=n_prop, generator=generator)
@@ -211,7 +212,8 @@ def render_image(params: Params, cfg: ModelConfig, rays: Rays, *,
     """
     if mesh is not None or cfg.sample_shards > 1:
         raise NotImplementedError(
-            "render_image on a mesh (data- or sample-parallel) is not ported yet")
+            "render_image on a mesh (data- or sample-parallel) is not ported "
+            "yet (ROADMAP queue 1 item 10)")
     device = resolve_device(device)
     rays = rays_to_device(rays, device)
     params = map_params(lambda p: p.to(device), params)

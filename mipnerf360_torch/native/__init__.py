@@ -1,9 +1,10 @@
 """Native (C++) host tier: the stateless batch-index stream and row gather
-(counterpart of ``mipnerf360_tpu/native``).
+(counterpart of ``mipnerf360_tpu/native``), and the PNG row unfilter of the
+port's own PNG reader (``utils/png.py``).
 
-``batcher.cpp`` is built with ``g++`` at first use into
-``build/mipnerf360_torch/`` (the name carries a hash of the source, so an
-edited source is rebuilt) and loaded with ctypes. Every entry point has a
+``batcher.cpp`` and ``png.cpp`` are built with ``g++`` at first use into one
+library in ``build/mipnerf360_torch/`` (the name carries a hash of the
+sources, so an edited source is rebuilt) and loaded with ctypes. Every entry point has a
 NumPy path that is bit-identical, taken when ``g++`` or the build is missing;
 :func:`native_available` says which path runs. Both are host code.
 
@@ -27,6 +28,7 @@ import numpy as np
 from ..ops._build import BUILD_DIR
 
 SRC_PATH = Path(__file__).resolve().parent / "batcher.cpp"
+SOURCES = (SRC_PATH, SRC_PATH.with_name("png.cpp"))
 CXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17", "-pthread")
 
 _lib = None
@@ -39,7 +41,8 @@ def _default_threads() -> int:
 
 
 def library_path() -> Path:
-    h = hashlib.sha256(" ".join(CXX_FLAGS).encode() + SRC_PATH.read_bytes())
+    h = hashlib.sha256(" ".join(CXX_FLAGS).encode()
+                       + b"".join(src.read_bytes() for src in SOURCES))
     return BUILD_DIR / f"libbatcher-{h.hexdigest()[:16]}.so"
 
 
@@ -49,7 +52,7 @@ def _build(path: Path) -> bool:
     tmp = path.with_name(f"{path.stem}.{os.getpid()}.tmp.so")
     try:
         path.parent.mkdir(parents=True, exist_ok=True)
-        subprocess.run(["g++", *CXX_FLAGS, str(SRC_PATH), "-o", str(tmp)],
+        subprocess.run(["g++", *CXX_FLAGS, *map(str, SOURCES), "-o", str(tmp)],
                        check=True, capture_output=True, timeout=120)
         os.replace(tmp, path)
         return True
@@ -85,6 +88,10 @@ def _load() -> Optional[ctypes.CDLL]:
             ctypes.POINTER(ctypes.c_int64), ctypes.c_int,
             ctypes.POINTER(ctypes.c_void_p), ctypes.c_int]
         lib.mnr_fill_batch_stack.restype = None
+        lib.mnr_png_unfilter.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+            ctypes.c_int64]
+        lib.mnr_png_unfilter.restype = ctypes.c_int64
         _lib = lib
         return _lib
 
@@ -155,3 +162,63 @@ def fill_batch_stack(seed: int, start: int, total: int,
         total, n_rays, src_ptrs, dims, n,
         dst_ptrs, _default_threads())
     return outs
+
+
+# --- PNG row unfilter ---------------------------------------------------------
+
+
+def _png_unfilter_np(rows: np.ndarray, bpp: int) -> np.ndarray:
+    """The NumPy path of :func:`png_unfilter` (and its reference): Sub and
+    Up whole rows at a time, Average and Paeth pixel by pixel."""
+    h, stride = rows.shape[0], rows.shape[1] - 1
+    out = np.empty((h, stride), np.uint8)
+    prev = np.zeros(stride, np.int64)
+    zero = np.zeros(bpp, np.int64)
+    for y in range(h):
+        kind, cur = rows[y, 0], rows[y, 1:].astype(np.int64)
+        if kind == 1:
+            cur = np.cumsum(cur.reshape(-1, bpp), axis=0).reshape(-1)
+        elif kind == 2:
+            cur = cur + prev
+        elif kind in (3, 4):
+            for x in range(0, stride, bpp):
+                a = cur[x - bpp:x] if x else zero
+                b = prev[x:x + bpp]
+                if kind == 3:
+                    pred = (a + b) >> 1
+                else:
+                    c = prev[x - bpp:x] if x else zero
+                    p = a + b - c
+                    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+                    pred = np.where((pa <= pb) & (pa <= pc), a,
+                                    np.where(pb <= pc, b, c))
+                cur[x:x + bpp] = (cur[x:x + bpp] + pred) & 0xFF
+        elif kind != 0:
+            raise ValueError(f"PNG row {y}: unknown filter type {kind}")
+        prev = cur & 0xFF
+        out[y] = prev
+    return out
+
+
+def png_unfilter(rows: np.ndarray, bpp: int) -> np.ndarray:
+    """Reconstruct a PNG image's bytes from its decompressed scanlines.
+
+    ``rows``: [h, 1 + stride] uint8, each row a filter-type byte and its
+    filtered bytes; ``bpp``: bytes per pixel. Returns [h, stride] uint8.
+    Raises ValueError on an unknown filter type."""
+    rows = np.ascontiguousarray(rows, dtype=np.uint8)
+    if (rows.ndim != 2 or rows.shape[1] < 1 or not 1 <= bpp <= 8
+            or (rows.shape[1] - 1) % bpp):
+        raise ValueError(f"bad PNG scanlines {rows.shape} for {bpp} bytes "
+                         "per pixel")
+    lib = _load()
+    if lib is None:
+        return _png_unfilter_np(rows, bpp)
+    h, stride = rows.shape[0], rows.shape[1] - 1
+    out = np.empty((h, stride), np.uint8)
+    bad = lib.mnr_png_unfilter(rows.ctypes.data, out.ctypes.data, h, stride,
+                               bpp)
+    if bad:
+        raise ValueError(f"PNG row {bad - 1}: unknown filter type "
+                         f"{rows[bad - 1, 0]}")
+    return out

@@ -307,6 +307,9 @@ def train(cfg: Config, *, max_steps: Optional[int] = None,
     logger = MetricsLogger(ckpt_dir)
     with open(os.path.join(ckpt_dir, "config.json"), "w") as f:
         f.write(cfg.to_json())
+    # Which staging stage_mode resolved to, and for how many bytes of rays.
+    logger.log(start_step, {"data/device_bank": float(bank is not None),
+                            "data/train_bytes": float(_bank_nbytes(dataset))})
 
     eval_batches = eval_dataset.batches(cfg.train.batch_size,
                                         seed=cfg.train.seed + 1)

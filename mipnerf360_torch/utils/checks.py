@@ -1,17 +1,21 @@
-"""Numerical-health guards: non-finite detection over a tree of tensors
+"""Numerical-health guards: non-finite detection over a tree of tensors,
+and a debug wrapper that names the op where a NaN first appears
 (counterpart of ``mipnerf360_tpu/utils/checks.py``).
 
 A tree is nested dicts, lists and tuples; only its floating tensors are
 inspected. The renderer intentionally produces transient NaNs that it
-sanitizes at once (distance = sum(w*t)/acc with acc == 0), so the guards
-look at the training state and its metrics, not inside the forward. The JAX package's ``checkify_fn`` has no
-counterpart here yet.
+sanitizes at once (distance = sum(w*t)/acc with acc == 0,
+``core/rendering.py``), so the guards look at the training state and its
+metrics, not inside the forward; :func:`checkify_fn` flags that benign site
+too, as the JAX package's does, and is for localizing a real divergence.
 """
 from __future__ import annotations
 
 from typing import Iterator, List, Tuple
 
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves
 
 
 def _leaves_with_paths(tree, path: str = "") -> Iterator[Tuple[str, object]]:
@@ -68,3 +72,44 @@ def assert_tree_finite(tree, context: str = ""):
     if int(count_nonfinite(tree)):
         detail = "; ".join(first_nonfinite_paths(tree))
         raise NonFiniteError(f"non-finite values {context}: {detail}")
+
+
+# Ops whose divisor is checked for zeros, as checkify's div_checks do.
+_DIVISIONS = {"div", "div_", "reciprocal", "reciprocal_", "remainder",
+              "remainder_", "fmod", "fmod_", "floor_divide", "floor_divide_"}
+
+
+class _FloatChecks(TorchDispatchMode):
+    """Runs every op and raises :class:`NonFiniteError` on the first that
+    divides by zero or returns a NaN, naming the op."""
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        name = func.overloadpacket.__name__
+        if name in _DIVISIONS:
+            divisor = args[0] if name.startswith("reciprocal") else args[1]
+            if (divisor == 0) is True or (torch.is_tensor(divisor)
+                                          and bool((divisor == 0).any())):
+                raise NonFiniteError(f"division by zero in {func}")
+        out = func(*args, **kwargs)
+        for t in tree_leaves(out):
+            if (torch.is_tensor(t) and t.is_floating_point()
+                    and bool(torch.isnan(t).any())):
+                raise NonFiniteError(f"nan generated by {func}")
+        return out
+
+
+def checkify_fn(fn):
+    """Wrap ``fn`` for debugging: ``wrapped(*args, **kwargs)`` runs ``fn``
+    and raises :class:`NonFiniteError` at the FIRST op inside it that
+    returns a NaN or divides by zero (the source of a division's Inf),
+    naming the op, as the JAX package's checkify ``float_checks`` do; an
+    Inf from overflow passes, as there. Otherwise it returns ``fn``'s
+    output. Each op's output is read on the host, so this is a debug tool,
+    not for the hot loop; out-of-range indices raise in PyTorch itself."""
+
+    def wrapped(*args, **kwargs):
+        with _FloatChecks():
+            return fn(*args, **kwargs)
+
+    return wrapped

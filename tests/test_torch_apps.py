@@ -1,7 +1,7 @@
 """The port's entry points (``mipnerf360_torch/apps``) on the CPU: train then
 eval through the real ``main``s, the eval of a JAX-trained directory against
-the JAX package's ``eval.json``, the PNG writer, and the NumPy helpers the
-eval copies from the JAX package (metrics, viz)."""
+the JAX package's ``eval.json``, the PNG writer the apps use, and the NumPy
+helpers the eval copies from the JAX package (metrics, viz)."""
 import json
 import os
 import sys
@@ -13,10 +13,13 @@ from PIL import Image
 
 from mipnerf360_torch.apps import eval as eval_app
 from mipnerf360_torch.apps import train as train_app
-from mipnerf360_torch.config import Config, DataConfig, TrainConfig
+from mipnerf360_torch.config import Config, DataConfig, ModelConfig, TrainConfig
+from mipnerf360_torch.core.rays import dummy_rays
 from mipnerf360_torch.data import get_dataset, viz
+from mipnerf360_torch.models.mipnerf360 import init_model, render_image
 from mipnerf360_torch.train.trainer import train
 from mipnerf360_torch.utils import metrics
+from mipnerf360_torch.utils.png import save_png
 from mipnerf360_tpu.apps import eval as jax_eval_app
 from mipnerf360_tpu.apps import train as jax_train_app
 from mipnerf360_tpu.data import viz as jviz
@@ -99,12 +102,21 @@ def test_eval_of_a_jax_run_matches_jax_eval(tmp_path, capsys):
 
 
 def test_unported_paths_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        get_dataset(DataConfig(dataset="blender"), "train")
+    """Every dataset is ported (the Blender loader reads its directory, so a
+    missing one raises FileNotFoundError) and ``--lpips`` takes a weights
+    file; what is still unported names ROADMAP queue 1 item 10."""
+    with pytest.raises(FileNotFoundError, match="transforms_train.json"):
+        get_dataset(DataConfig(dataset="blender", base_dir=str(tmp_path)),
+                    "train")
     with pytest.raises(ValueError, match="unknown dataset"):
         get_dataset(DataConfig(dataset="nope"), "train")
-    with pytest.raises(NotImplementedError, match="lpips"):
-        eval_app.main(["--lpips", "vgg.npz", "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
+        train_app.main(["--multihost", "--device", "cpu"])
+    cfg = ModelConfig(num_samples=4, hidden_proposal=8, hidden_nerf=8,
+                      nerf_depth=1, compute_dtype="float32")
+    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
+        render_image(init_model(cfg), cfg, dummy_rays(2), mesh=object(),
+                     device="cpu")
 
 
 def test_entry_points_need_the_card_unless_asked_for_cpu(tmp_path):
@@ -124,12 +136,15 @@ def test_entry_points_need_the_card_unless_asked_for_cpu(tmp_path):
 def test_png_writer_round_trips_through_pil(tmp_path, shape):
     img = np.random.default_rng(0).integers(0, 256, shape, dtype=np.uint8)
     path = str(tmp_path / "x.png")
-    eval_app.save_png(path, img)
+    save_png(path, img)
     np.testing.assert_array_equal(np.asarray(Image.open(path)), img)
+    rgba = np.concatenate([img, img[..., :1]], -1)   # the writer takes RGBA
+    save_png(path, rgba)
+    np.testing.assert_array_equal(np.asarray(Image.open(path)), rgba)
     with pytest.raises(ValueError):
-        eval_app.save_png(path, np.zeros((2, 2, 4), np.uint8))
+        save_png(path, np.zeros((2, 2, 2), np.uint8))
     with pytest.raises(ValueError):
-        eval_app.save_png(path, np.zeros((2, 2), np.uint8))
+        save_png(path, np.zeros((2, 2), np.uint8))
 
 
 def test_metrics_and_viz_match_jax():

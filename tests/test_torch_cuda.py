@@ -227,3 +227,60 @@ def test_train_step_on_card_matches_cpu(cuda):
     for k in ("prop", "nerf"):
         for a, b in zip(g_card[k], g_cpu[k]):
             torch.testing.assert_close(a.cpu(), b, **F32_TOL)
+
+
+def test_lpips_on_card_matches_cpu(cuda):
+    """LPIPS of random weights: cuDNN convolutions in float32 with TF32 off
+    against the CPU's, at rtol 1e-4."""
+    from mipnerf360_torch.utils.lpips import lpips, random_weights
+
+    weights = random_weights(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(6)
+    img, ref = rng.uniform(size=(2, 45, 61, 3)).astype(np.float32)
+    want = float(lpips(img, ref, weights))
+    got = lpips(torch.as_tensor(img, device=cuda), ref,
+                {k: v.to(cuda) for k, v in weights.items()})
+    assert got.is_cuda
+    np.testing.assert_allclose(float(got), want, rtol=1e-4)
+
+
+def test_checkify_fn_on_card(cuda):
+    from mipnerf360_torch.utils.checks import NonFiniteError, checkify_fn
+
+    x = torch.tensor([1.0, 4.0], device=cuda)
+    with pytest.raises(NonFiniteError, match=r"nan generated by aten\.log"):
+        checkify_fn(lambda t: torch.log(t - 2.0))(x)
+    with pytest.raises(NonFiniteError, match="division by zero"):
+        checkify_fn(lambda t: t / (t - 1.0))(x)
+    torch.testing.assert_close(checkify_fn(torch.sqrt)(x), torch.sqrt(x))
+
+
+def test_video_app_on_card(cuda, tmp_path):
+    """apps.video end to end on the card: K1 twice per pose's chunk, frames
+    within one 8-bit level of the CPU's."""
+    from mipnerf360_torch.apps import train as train_app
+    from mipnerf360_torch.apps import video as video_app
+    from mipnerf360_torch.utils.png import read_png
+
+    ckpt = str(tmp_path / "ckpt")
+    sets = ["model.num_samples=16", "model.hidden_proposal=32",
+            "model.hidden_nerf=64", "model.nerf_depth=3",
+            "model.compute_dtype=float32", "data.synthetic_resolution=16",
+            "data.synthetic_views=3", "train.max_steps=2",
+            "train.batch_size=64", f"train.checkpoint_dir={ckpt}"]
+    train_app.main([a for s in sets for a in ("--set", s)])
+    frames = {}
+    for dev in ("cpu", "cuda"):
+        out = str(tmp_path / dev)
+        before = composite.launches
+        summary = video_app.main(["--ckpt", ckpt, "--out", out, "--chunk",
+                                  "128", "--device", dev])
+        assert composite.launches - before == (0 if dev == "cpu" else 3 * 2 * 2)
+        path = summary["outputs"]["video"]
+        assert summary["n_frames"] == 3
+        frames[dev] = path
+    if frames["cuda"].endswith(".frames"):
+        for i in range(3):
+            a = read_png(f"{frames['cuda']}/{i:04d}.png").astype(int)
+            b = read_png(f"{frames['cpu']}/{i:04d}.png").astype(int)
+            assert np.abs(a - b).max() <= 1

@@ -233,11 +233,15 @@ def test_synthetic_split_matches_jax_exactly(split):
 
 
 def test_synthetic_quality_test_split_size():
-    """The held-out views the card renders: 7 views of 64x64."""
+    """The held-out views the card renders: 7 views of 64x64; the render
+    split the video renders: 28 poses of 64x64, made one pose at a time."""
     data = synthetic_dataset(get_config("synthetic_quality").data, "test")
     assert (data.n_images, data.h, data.w, data.n_rays) == (7, 64, 64, 28672)
-    with pytest.raises(NotImplementedError):
-        synthetic_dataset(get_config("synthetic_quality").data, "render")
+    render = synthetic_dataset(get_config("synthetic_quality").data, "render")
+    assert (render.n_images, render.h, render.w, render.n_rays) == (
+        28, 64, 64, 28 * 4096)
+    rays, pixels = render.image(27)
+    assert pixels is None and rays.origins.shape == (4096, 3)
 
 
 @pytest.mark.parametrize("g_rounded", [True, False])
