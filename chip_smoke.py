@@ -20,7 +20,7 @@ port's two paths at the full width of the ``synthetic_quality`` preset:
   each line that makes the host wait for the card;
 - ``garden_quality`` on an LLFF-layout capture of the analytic sphere at
   the size of garden at factor 8, which the script writes (185 views of
-  648x420): a third of the held-out views at random init, ``apps.train``
+  648x420): a sixth of the held-out views at random init, ``apps.train``
   with host staging (as ``stage_mode=auto`` picks for its 2.45 GiB of train
   rays) and with the bank on the card, ``apps.eval --lpips`` (random VGG
   weights) on every held-out view, which must beat the random-init PSNR on
@@ -29,7 +29,13 @@ port's two paths at the full width of the ``synthetic_quality`` preset:
 - ``blender_lego_quality`` on an 800x800 RGBA Blender-layout capture:
   ``apps.train`` and ``apps.video`` on the synthesized render path;
 - ``apps.video`` on the synthetic scene's render split, the port's PNG
-  decoder against the loaders' image reader, LPIPS and ``checkify_fn``.
+  decoder against the loaders' image reader, LPIPS and ``checkify_fn``;
+- the parallel layer under torchrun: ``apps.train --multihost`` at world
+  size 1 over NCCL, whose losses must be run A's; then two ranks sharing
+  the card over gloo: a data-parallel and a tensor-parallel train step
+  against the one-process step, and the render with data=2 and with
+  sample_shards=2 against the one-process render. The script starts
+  itself under torchrun (``--worker``) for these ranks.
 
 Each path runs with the kernels' launch counts set to 0 just before it and
 read just after. The card is checked against the CPU on the render (the
@@ -54,6 +60,7 @@ per-launch device time in the train step from the trace.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import json
 import re
 import shutil
@@ -98,20 +105,22 @@ TRAINER_LOSS_RTOL = 1e-2
 # every 8th (24) held out. Its 161 train views hold 43.8 M rays, 2.45 GiB
 # with their pixels: above the trainer's 2 GiB bank threshold, so
 # stage_mode=auto stages from the host (at 131 train views it would not).
-# Run A trains GARDEN_STEPS with batch evals at step 60 and 120, one image
-# eval at 120 (4 views, the preset's eval_image_views) and no periodic
-# save; run B takes the first GARDEN_BANK_STEPS with the bank on the card,
-# no eval or save in its window. The video renders GARDEN_VIDEO_POSES of the
-# preset's 120 orbit poses. The random-init render, the eval's reference,
-# takes every GARDEN_INIT_STRIDE-th held-out view (8 of the 24), and the
-# eval's PSNR on those views must beat it. (8 video poses, an image eval at
-# step 60 too and a random-init render of all 24 views made the script 5.4
-# minutes long; all three were cut for time.)
+# Run A trains GARDEN_STEPS with a batch eval and one image eval (4 views,
+# the preset's eval_image_views) at its last step and no periodic save; run
+# B takes the first GARDEN_BANK_STEPS with the bank on the card, no eval or
+# save in its window. The video renders GARDEN_VIDEO_POSES of the preset's
+# 120 orbit poses. The random-init render, the eval's reference, takes
+# every GARDEN_INIT_STRIDE-th held-out view (4 of the 24), and the eval's
+# PSNR on those views must beat it. (Cut for time, in two rounds: the video
+# from 8 to 4 and then 2 poses, run A from 120 to 60 steps with its image
+# eval at 60 only, the random-init render from all 24 views to 8 and then
+# 4. With phase 12 added and before the second round the script took 343 s
+# on an H100.)
 GARDEN_VIEWS, GARDEN_W, GARDEN_H, GARDEN_FACTOR = 185, 648, 420, 8
-GARDEN_STEPS, GARDEN_BANK_STEPS, GARDEN_VIDEO_POSES = 120, 40, 4
-GARDEN_INIT_STRIDE = 3
+GARDEN_STEPS, GARDEN_BANK_STEPS, GARDEN_VIDEO_POSES = 60, 40, 2
+GARDEN_INIT_STRIDE = 6
 GARDEN_SETS = ["train.log_every=20", "train.eval_every=60",
-               "train.eval_image_every=120", "train.lr_max_steps=10000"]
+               "train.eval_image_every=60", "train.lr_max_steps=10000"]
 # Phase 10: blender_lego_quality at full width on a Blender-layout capture
 # of 800x800 RGBA views (loaded at factor 2, 400x400): lego's 100 train
 # views, its 200 test views cut to 8, LEGO_STEPS steps, and LEGO_VIDEO_POSES
@@ -127,6 +136,23 @@ LPIPS_RTOL = 1e-4
 # Phase 11 decodes this many garden PNGs with the port's own decoder and
 # with the loaders' reader.
 PNG_CHECK_VIEWS = 24
+
+# Phase 12: the parallel layer. 12a trains through ``apps.train
+# --multihost`` under torchrun at world size 1 over NCCL, PARALLEL_STEPS
+# steps of phase 8's run A (same settings), whose losses it must repeat.
+# 12b runs two ranks over gloo sharing the one card (NCCL refuses two ranks
+# on one device): a data-parallel step of PARALLEL_DP_BATCH rays, a
+# tensor-parallel step (data=1, model=2) of PARALLEL_TP_BATCH rays, both
+# against the one-process step on the card at phase 7's bfloat16
+# tolerances, and the render of phase 4 with data=2 and with
+# sample_shards=2 at phase 5's. Gloo moves CUDA tensors through the host:
+# 12b's times are correctness runs, not speeds. Each torchrun call stops
+# at PARALLEL_TIMEOUT_S.
+PARALLEL_STEPS = 40
+PARALLEL_DP_BATCH, PARALLEL_TP_BATCH = 4096, 512
+PARALLEL_TIMEOUT_S = 600
+PARALLEL_BF16 = dict(rtol=2e-2, atol=2e-2)
+PARALLEL_GRAD_REL_L2 = 5e-2
 
 # K1 against its plain version: the JAX package's Pallas-vs-core tolerance
 # (tests/test_pallas_ops.py). The two differ only in the order of the
@@ -1004,7 +1030,7 @@ def _image_reader() -> str:
 
 def drive_garden(composite, card: str, work: Path, step_rays_per_s: float):
     """Phase 9: ``garden_quality`` at full width on an LLFF-layout capture
-    at garden's size at factor 8: load it, render a third of the held-out
+    at garden's size at factor 8: load it, render a sixth of the held-out
     views at random init (card against CPU on 128 of their rays),
     ``apps.train`` (run A: host staging, as stage_mode=auto picks for this
     bank; run B: the first GARDEN_BANK_STEPS with the bank on the card),
@@ -1335,12 +1361,397 @@ def drive_small(composite, card: str, work: Path, lpips_view, weights):
     return {"synthetic_video": launches}
 
 
+def _params_sha256(params) -> str:
+    """A digest of every byte of a params tree (to show ranks agree)."""
+    from mipnerf360_torch.train.state import leaves
+
+    h = hashlib.sha256()
+    for p in leaves(params):
+        h.update(p.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _parallel_batch(cfg, n: int):
+    """``n`` rays and pixels of the synthetic train split, drawn from a
+    seed: the batch of phase 12b's steps (the tensor-parallel step takes its
+    first PARALLEL_TP_BATCH)."""
+    from mipnerf360_torch.core.rays import take_rays
+    from mipnerf360_torch.data.synthetic import synthetic_dataset
+
+    train = synthetic_dataset(cfg.data, "train",
+                              background=1.0 if cfg.model.white_bkgd else 0.0)
+    idx = np.random.default_rng(12).choice(train.n_rays, n, replace=False)
+    return take_rays(train.rays, idx), train.pixels[idx]
+
+
+def _counted(composite, fn):
+    """(fn(), (K1, K2) launches of this process during it, wall s)."""
+    composite.launches = composite.bwd_launches = 0
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (composite.launches, composite.bwd_launches), \
+        time.perf_counter() - t0
+
+
+def _worker_12a(out: Path, argv: list) -> None:
+    """Phase 12a's rank (under torchrun): ``apps.train.main(argv +
+    ["--multihost"])``; writes the process group's backend and world size
+    (read as the trainer leaves the group) and the run's K1 and K2
+    launches."""
+    import torch.distributed as dist
+
+    from mipnerf360_torch.apps import train as train_app
+    from mipnerf360_torch.ops import composite
+
+    seen = {}
+    leave = dist.destroy_process_group
+
+    def destroy(*args, **kwargs):
+        seen.update(backend=dist.get_backend(), world=dist.get_world_size())
+        return leave(*args, **kwargs)
+
+    dist.destroy_process_group = destroy
+    _, (k1, k2), wall = _counted(composite,
+                                 lambda: train_app.main(argv + ["--multihost"]))
+    out.write_text(json.dumps(dict(seen, k1=k1, k2=k2, wall=wall)))
+
+
+def _worker_12b(out_dir: Path, backend: str) -> None:
+    """Phase 12b's rank under torchrun: over gloo every rank on cuda:0,
+    over NCCL one card per rank (``--ranks``). On P ranks: the
+    data-parallel step (data=P), the tensor-parallel step (data=P/2,
+    model=2), and the render with data=P and with sample_shards=2 (data
+    P/2). Rank r writes ``rank<r>.json`` (launch counts, times, digests of
+    the params after each step) and rank 0 also ``rank0.npz`` (the global
+    losses and gradients, the renders)."""
+    import torch.distributed as dist
+
+    from mipnerf360_torch.config import get_config
+    from mipnerf360_torch.data.synthetic import synthetic_dataset
+    from mipnerf360_torch.models.mipnerf360 import (init_model, map_params,
+                                                    render_image)
+    from mipnerf360_torch.ops import composite
+    from mipnerf360_torch.parallel import init_distributed, make_mesh, shutdown
+    from mipnerf360_torch.parallel.mesh import (broadcast_state_,
+                                                gather_params, gather_state,
+                                                shard_batch, shard_state)
+    from mipnerf360_torch.train import (init_train_state, joint_cadence_grads,
+                                        joint_cadence_step)
+    from mipnerf360_torch.train.state import leaves
+
+    dev = (init_distributed("cuda") if backend == "nccl"
+           else init_distributed("cuda:0", backend="gloo"))
+    rank, world = dist.get_rank(), dist.get_world_size()
+    cfg = get_config("synthetic_quality")
+    rays, pixels = _parallel_batch(cfg, PARALLEL_DP_BATCH)
+    res = {"backend": dist.get_backend(), "world": world, "device": str(dev)}
+    arrays = {}
+
+    def state(mesh):
+        s = init_train_state(cfg.model, cfg.train,
+                             generator=torch.Generator().manual_seed(0),
+                             device=dev)
+        broadcast_state_(s)
+        return shard_state(mesh, s)
+
+    meshes = {"dp": make_mesh(world, 1, device=dev),
+              "tp": make_mesh(world // 2, 2, device=dev)}
+    for name, batch in (("dp", PARALLEL_DP_BATCH), ("tp", PARALLEL_TP_BATCH)):
+        mesh = meshes[name]
+        r, p = shard_batch(mesh, _first_rays(rays, batch), pixels[:batch])
+        s = state(mesh)
+        grads, aux = joint_cadence_grads(cfg, s, r, p, mesh=mesh)
+        full = gather_params(mesh, {k: _tree_like(s.params[k], grads[k])
+                                    for k in ("prop", "nerf")})
+        arrays.update({f"{name}_aux_{k}": v.item() for k, v in aux.items()})
+        arrays.update({f"{name}_grad_{i}": g.cpu().numpy() for i, g in
+                       enumerate(leaves(full["prop"]) + leaves(full["nerf"]))})
+        s = state(mesh)
+        (s, _), launches, wall = _counted(
+            composite, lambda: joint_cadence_step(cfg, s, r, p, mesh=mesh))
+        res[f"{name}_step"] = dict(
+            k1=launches[0], k2=launches[1], s=wall,
+            sha256=_params_sha256(gather_state(mesh, s).params))
+        del s, grads, full
+
+    test = synthetic_dataset(cfg.data, "test",
+                             background=1.0 if cfg.model.white_bkgd else 0.0)
+    params = map_params(lambda x: x.to(dev), init_model(
+        cfg.model, torch.Generator().manual_seed(0)))
+    # The sample-sharded render gets no mesh: it builds its (P/2, 2) mesh on
+    # the card it is asked for, whatever the backend.
+    for name, mcfg, mesh in (
+            ("render_dp", cfg.model, meshes["dp"]),
+            ("render_samples", dataclasses.replace(cfg.model, sample_shards=2),
+             None)):
+        out, launches, wall = _counted(composite, lambda: render_image(
+            params, mcfg, test.rays, chunk=RENDER_CHUNK, mesh=mesh,
+            device="cuda"))
+        if not all(x.is_cuda for x in out):
+            _fail(f"12b {name}: rank {rank} rendered off the card")
+        res[name] = dict(k1=launches[0], k2=launches[1], s=wall)
+        arrays[name] = torch.cat([out[0], out[1][:, None], out[2][:, None]],
+                                 -1).cpu().numpy()
+    (out_dir / f"rank{rank}.json").write_text(json.dumps(res))
+    if rank == 0:
+        np.savez(out_dir / "rank0.npz", **arrays)
+    shutdown()
+
+
+def _first_rays(rays, n: int):
+    """The first ``n`` rays."""
+    from mipnerf360_torch.core.rays import rays_map
+
+    return rays_map(lambda x: x[:n], rays)
+
+
+def _tree_like(tree, flat):
+    """``flat`` (in ``leaves`` order) arranged as ``tree``."""
+    it = iter(flat)
+
+    def build(t):
+        if isinstance(t, dict):
+            return {k: build(t[k]) for k in sorted(t)}
+        if isinstance(t, (list, tuple)):
+            return [build(v) for v in t]
+        return next(it)
+    return build(tree)
+
+
+def _torchrun(nproc: int, args: list, here: Path, log: Path) -> None:
+    """``python -m torch.distributed.run --standalone --nproc_per_node=nproc
+    chip_smoke.py --worker *args``, its output to ``log``; the whole
+    process group is killed at PARALLEL_TIMEOUT_S. Fails on a non-zero
+    exit."""
+    import os
+    import signal
+
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc_per_node={nproc}", str(here / "chip_smoke.py"),
+           "--worker", *map(str, args)]
+    with open(log, "w") as f:
+        proc = subprocess.Popen(cmd, cwd=here, stdout=f,
+                                stderr=subprocess.STDOUT,
+                                start_new_session=True)
+        try:
+            rc = proc.wait(timeout=PARALLEL_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+            rc = "killed at the time limit"
+    if rc != 0:
+        print(log.read_text()[-6000:], flush=True)
+        _fail(f"torchrun of {args[0]} on {nproc} rank(s) exited {rc}")
+
+
+def _one_process_grads(cfg, n: int):
+    """The one-process joint step's losses and gradients on the card, on
+    the first ``n`` rays of phase 12b's batch, from the state 12b's ranks
+    start from: ({loss: float}, [gradient leaves, prop then nerf])."""
+    from mipnerf360_torch.core.rays import rays_to_device
+    from mipnerf360_torch.train import init_train_state, joint_cadence_grads
+
+    rays, pixels = _parallel_batch(cfg, PARALLEL_DP_BATCH)
+    state = init_train_state(cfg.model, cfg.train,
+                             generator=torch.Generator().manual_seed(0),
+                             device="cuda")
+    grads, aux = joint_cadence_grads(
+        cfg, state, rays_to_device(_first_rays(rays, n), "cuda"),
+        torch.as_tensor(pixels[:n], device="cuda"))
+    return ({k: v.item() for k, v in aux.items()},
+            [g.cpu() for k in ("prop", "nerf") for g in grads[k]])
+
+
+def drive_parallel(cfg, card: str, here: Path, work: Path, render_ref,
+                   step_rays_per_s: float) -> dict:
+    """Phase 12: the parallel layer on the card. 12a: ``apps.train
+    --multihost`` under torchrun at world size 1 over NCCL, against phase
+    8's run A. 12b: two gloo ranks sharing the card, each check against
+    the one-process result on the card. Returns {path: (K1, K2)}."""
+    every = _cadences(cfg, TRAINER_SETS)
+    ckpt = work / "P12a"
+    argv = ["--preset", "synthetic_quality",
+            "--set", f"train.checkpoint_dir={ckpt}",
+            "--set", f"train.max_steps={PARALLEL_STEPS}"]
+    argv += [a for s in TRAINER_SETS for a in ("--set", s)]
+    seen_path = work / "p12a.json"
+    _torchrun(1, ["12a", seen_path, *argv], here, work / "p12a.log")
+    seen = json.loads(seen_path.read_text())
+    loss_a = {r["step"]: r["train/loss"] for r in _metric_records(work / "A")
+              if "train/loss" in r}
+    rec = _metric_records(ckpt)
+    loss = {r["step"]: r["train/loss"] for r in rec if "train/loss" in r}
+    steps = sorted(loss)
+    rel = max(abs(loss[s] - loss_a[s]) / abs(loss_a[s]) for s in steps)
+    same = all(loss[s] == loss_a[s] for s in steps)
+    want = (2 * PARALLEL_STEPS, 2 * PARALLEL_STEPS)
+    print(f"parallel 12a: apps.train --multihost under torchrun, process "
+          f"group backend {seen['backend']}, world size {seen['world']}, "
+          f"{PARALLEL_STEPS} steps in {seen['wall']:.1f} s (start-up "
+          f"included); train/loss " + ", ".join(
+              f"step {s}: {loss[s]:.6f} (run A {loss_a[s]:.6f})"
+              for s in steps)
+          + f"; largest relative difference {rel:.3e} (rtol "
+          f"{TRAINER_LOSS_RTOL}), {'bit-identical' if same else 'NOT bit-identical'}"
+          f" to phase 8's run A; K1 launches {seen['k1']}, K2 launches "
+          f"{seen['k2']} (expected {want[0]} and {want[1]})", flush=True)
+    if (seen["backend"], seen["world"]) != ("nccl", 1):
+        _fail(f"12a ran on {seen['backend']} with world size {seen['world']}")
+    if steps != [s for s in sorted(loss_a) if s <= PARALLEL_STEPS]:
+        _fail(f"12a logged losses at {steps}")
+    if rel > TRAINER_LOSS_RTOL:
+        _fail("12a's losses disagree with phase 8's run A")
+    if (seen["k1"], seen["k2"]) != want:
+        _fail(f"12a launched K1 {seen['k1']} and K2 {seen['k2']} times")
+    clean = _clean_chunks(rec, every)
+    clean = [(s, v) for s, v in clean if s > every["log_every"]]
+    clean_a = _clean_chunks(_metric_records(work / "A"), every)
+    rays_a = statistics.median(v for _, v in clean_a)
+    print(f"parallel 12a: perf/rays_per_sec of the chunks after the first "
+          f"{[(s, round(v)) for s, v in clean]} against run A's median "
+          f"{rays_a:.0f} ({clean[-1][1] / rays_a:.3f}x) and the bare step's "
+          f"{step_rays_per_s:.0f}; on {card}", flush=True)
+
+    paths = {"parallel_12a_trainer_nccl_1rank": (seen["k1"], seen["k2"])}
+    paths.update(_drive_ranks(cfg, here, work, render_ref, 2, "gloo"))
+    return paths
+
+
+def _drive_ranks(cfg, here: Path, work: Path, render_ref, nproc: int,
+                 backend: str) -> dict:
+    """Phase 12b on ``nproc`` ranks over ``backend`` (gloo: the ranks share
+    cuda:0; NCCL: one card each), every check against the one-process
+    result on the card. Returns {path: (K1, K2)} per rank."""
+    refs = {name: _one_process_grads(cfg, n) for name, n in
+            (("dp", PARALLEL_DP_BATCH), ("tp", PARALLEL_TP_BATCH))}
+    torch.cuda.empty_cache()
+    out = work / f"p12b_{backend}_{nproc}"
+    out.mkdir()
+    t0 = time.perf_counter()
+    _torchrun(nproc, ["12b", out, backend], here, out.with_suffix(".log"))
+    wall = time.perf_counter() - t0
+    ranks = [json.loads((out / f"rank{r}.json").read_text())
+             for r in range(nproc)]
+    got = np.load(out / "rank0.npz")
+    how = ("sharing the card: gloo moves CUDA tensors through the host, so "
+           "these are correctness runs, not speeds" if backend == "gloo"
+           else "one card each")
+    print(f"parallel 12b: {nproc} ranks over {ranks[0]['backend']} on "
+          f"{sorted({r['device'] for r in ranks})}, {wall:.1f} s with "
+          f"start-up ({how})", flush=True)
+    tag = f"parallel_12b_{backend}{nproc}"
+    layouts = {"dp": f"data={nproc}", "tp": f"data={nproc // 2}, model=2",
+               "render_dp": f"data={nproc}",
+               "render_samples": f"data={nproc // 2}, sample_shards=2"}
+    paths = {}
+    for name, batch in (("dp", PARALLEL_DP_BATCH), ("tp", PARALLEL_TP_BATCH)):
+        aux_ref, grads_ref = refs[name]
+        worst = 0.0
+        for k, v in aux_ref.items():
+            g = float(got[f"{name}_aux_{k}"])
+            if not np.isclose(g, v, **PARALLEL_BF16):
+                _fail(f"12b {name}: {k} {g} against one process {v}")
+        for i, ref in enumerate(grads_ref):
+            rel = _rel_l2(torch.from_numpy(got[f"{name}_grad_{i}"]), ref)
+            worst = max(worst, rel)
+            if rel > PARALLEL_GRAD_REL_L2:
+                _fail(f"12b {name}: gradient leaf {i} rel_l2 {rel:.3e}")
+        digests = {r[f"{name}_step"]["sha256"] for r in ranks}
+        steps = [r[f"{name}_step"] for r in ranks]
+        print(f"parallel 12b {name} step ({layouts[name]}, {batch} rays at "
+              "full width): losses " + ", ".join(
+                  f"{k} {float(got[f'{name}_aux_{k}']):.6g} (one process "
+                  f"{v:.6g})" for k, v in aux_ref.items())
+              + f"; {len(grads_ref)} gradient leaves, largest rel_l2 "
+              f"{worst:.3e} (<= {PARALLEL_GRAD_REL_L2}); params after the "
+              f"step {'bit-identical' if len(digests) == 1 else 'DIFFERENT'}"
+              f" on all {nproc} ranks; per rank K1/K2 launches "
+              f"{[(s['k1'], s['k2']) for s in steps]} (expected 2/2), "
+              f"{[round(s['s'], 3) for s in steps]} s", flush=True)
+        if len(digests) != 1:
+            _fail(f"12b {name}: the ranks' params differ after the step")
+        for r, st in enumerate(steps):
+            if (st["k1"], st["k2"]) != (2, 2):
+                _fail(f"12b {name}: rank {r} launched K1 {st['k1']} and K2 "
+                      f"{st['k2']} times in the step")
+            paths[f"{tag}_{name}_step_rank{r}"] = (st["k1"], st["k2"])
+    n_chunks = -(-render_ref.shape[0] // RENDER_CHUNK)
+    for name, per_chunk in (("render_dp", 2), ("render_samples", 1)):
+        diff = np.abs(got[name] - render_ref)
+        ok = np.allclose(got[name], render_ref, **PARALLEL_BF16)
+        counts = [(r[name]["k1"], r[name]["k2"]) for r in ranks]
+        print(f"parallel 12b {name} ({layouts[name]}, {render_ref.shape[0]} "
+              f"rays, chunk {RENDER_CHUNK}) against phase 4's render: "
+              f"max_abs_err {diff.max():.3e} (rtol/atol "
+              f"{PARALLEL_BF16['rtol']}) {'ok' if ok else 'MISMATCH'}; per "
+              f"rank K1/K2 launches {counts} (expected {per_chunk * n_chunks}"
+              f"/0), {[round(r[name]['s'], 3) for r in ranks]} s", flush=True)
+        if not ok or not np.isfinite(got[name]).all():
+            _fail(f"12b {name} disagrees with phase 4's render")
+        for r, c in enumerate(counts):
+            if c != (per_chunk * n_chunks, 0):
+                _fail(f"12b {name}: rank {r} launched K1/K2 {c}")
+            paths[f"{tag}_{name}_rank{r}"] = c
+    return paths
+
+
+def _multicard(nproc: int, card: str, here: Path) -> int:
+    """``--ranks N``: phase 12b over NCCL with one card per rank, on a host
+    with N cards; its reference render is phase 4's. Builds the kernels
+    first (phase 2)."""
+    from mipnerf360_torch.config import get_config
+    from mipnerf360_torch.data.synthetic import synthetic_dataset
+    from mipnerf360_torch.models.mipnerf360 import (init_model, map_params,
+                                                    render_image)
+    from mipnerf360_torch.ops import _build
+
+    if torch.cuda.device_count() < nproc:
+        _fail(f"--ranks {nproc} needs {nproc} cards, this host has "
+              f"{torch.cuda.device_count()}")
+    print(f"built {sorted(_build.build())}", flush=True)
+    cfg = get_config("synthetic_quality")
+    test = synthetic_dataset(cfg.data, "test",
+                             background=1.0 if cfg.model.white_bkgd else 0.0)
+    params = map_params(lambda p: p.cuda(), init_model(
+        cfg.model, torch.Generator().manual_seed(0)))
+    rgb, distance, acc = render_image(params, cfg.model, test.rays,
+                                      chunk=RENDER_CHUNK, device="cuda")
+    render_ref = torch.cat([rgb, distance[:, None], acc[:, None]],
+                           -1).cpu().numpy()
+    (here / "build").mkdir(exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_", dir=here / "build"))
+    try:
+        paths = _drive_ranks(cfg, here, work, render_ref, nproc, "nccl")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(json.dumps({"launches_by_path": paths}), flush=True)
+    print(card, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
 def main() -> int:
-    profile_dir = None
+    if len(sys.argv) > 2 and sys.argv[1] == "--worker":
+        # A rank of phase 12, started by torchrun from drive_parallel.
+        here = Path(__file__).resolve().parent
+        sys.path.insert(0, str(here))
+        if sys.argv[2] == "12a":
+            _worker_12a(Path(sys.argv[3]), sys.argv[4:])
+        else:
+            _worker_12b(Path(sys.argv[3]), sys.argv[4])
+        return 0
+    profile_dir = ranks = None
     if len(sys.argv) == 3 and sys.argv[1] == "--profile":
         profile_dir = Path(sys.argv[2])
+    elif (len(sys.argv) == 3 and sys.argv[1] == "--ranks"
+          and sys.argv[2].isdigit() and int(sys.argv[2]) % 2 == 0):
+        ranks = int(sys.argv[2])
     elif sys.argv[1:]:
-        print("usage: python3 chip_smoke.py [--profile DIR]", file=sys.stderr)
+        print("usage: python3 chip_smoke.py [--profile DIR | --ranks N]",
+              file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -1369,6 +1780,8 @@ def main() -> int:
     print(card, flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}", flush=True)
+    if ranks is not None:
+        return _multicard(ranks, card, here)
 
     # Phase 2: build every kernel (one nvcc per source, all at once).
     t0 = time.perf_counter()
@@ -1430,6 +1843,9 @@ def main() -> int:
     init_psnr = float(np.mean([
         metrics.psnr(a, b) for a, b in zip(rgb.cpu().numpy().reshape(views),
                                            test.pixels.reshape(views))]))
+    # Phase 12b's renders are held to this one.
+    render_ref = torch.cat([rgb, distance[:, None], acc[:, None]],
+                           -1).cpu().numpy()
     print(f"render at random init: mean PSNR {init_psnr:.3f} dB over "
           f"{test.n_images} views", flush=True)
 
@@ -1484,6 +1900,9 @@ def main() -> int:
         paths.update(drive_lego(composite, card, work))
         # Phase 11: the synthetic video, LPIPS and checkify_fn on the card.
         paths.update(drive_small(composite, card, work, lpips_view, weights))
+        # Phase 12: the parallel layer, under torchrun.
+        paths.update(drive_parallel(cfg, card, here, work, render_ref,
+                                    step_rays_per_s))
     finally:
         shutil.rmtree(work, ignore_errors=True)
     paths = {"render": (k1_render, k2_render), "train": (k1_train, k2_train),

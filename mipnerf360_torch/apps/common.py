@@ -7,14 +7,19 @@ Preset selection + typed dotted overrides, e.g.:
         --set train.batch_size=4096 --set model.num_samples=64
 
 ``--device`` (default ``cuda``) is where the app runs; ``--device cpu`` runs
-it on the CPU.
+it on the CPU. Launched under torchrun with more than one rank, eval and
+video render data-parallel (:func:`render_setup`).
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import os
 
 from ..config import Config, PRESETS, get_config
+from ..core.rays import resolve_device
+from ..parallel.mesh import default_render_mesh, init_distributed, shutdown
 
 
 def add_config_args(ap: argparse.ArgumentParser):
@@ -102,3 +107,20 @@ def config_from_args(args, ckpt_dir: str = "") -> Config:
             "authoritative; drop --preset or use --set for deliberate "
             "overrides.")
     return apply_overrides(cfg, args.set)
+
+
+@contextlib.contextmanager
+def render_setup(args, cfg: Config):
+    """(device, mesh) for the render apps. Under torchrun with a world size
+    above 1 the process joins the group (NCCL on the card, gloo on the CPU)
+    and renders on ``default_render_mesh`` (all ranks on the data axis, or
+    ``cfg.model.sample_shards`` on the model axis), and leaves the group on
+    exit; otherwise ``args.device`` and no mesh."""
+    if int(os.environ.get("WORLD_SIZE", "1")) <= 1:
+        yield resolve_device(args.device), None
+        return
+    device = init_distributed(args.device)
+    try:
+        yield device, default_render_mesh(cfg.model.sample_shards, device)
+    finally:
+        shutdown()

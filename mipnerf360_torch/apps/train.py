@@ -3,11 +3,17 @@
     python -m mipnerf360_torch.apps.train --preset synthetic_quality
     python -m mipnerf360_torch.apps.train --preset synthetic_quality --resume
     python -m mipnerf360_torch.apps.train ... --device cpu
+    torchrun --nproc_per_node=N -m mipnerf360_torch.apps.train --multihost ...
+
+``--multihost`` joins the process group torchrun describes (NCCL on the
+card, gloo with ``--device cpu``) and trains on the ``mesh.*`` mesh over
+it; a missing environment or a failed rendezvous raises.
 """
 from __future__ import annotations
 
 import argparse
 
+from ..parallel.mesh import init_distributed, is_primary, shutdown
 from ..train.trainer import train
 from .common import add_config_args, config_from_args
 
@@ -20,13 +26,9 @@ def main(argv=None):
     ap.add_argument("--resume", action="store_true",
                     help="resume from the latest checkpoint (exact resume)")
     ap.add_argument("--multihost", action="store_true",
-                    help="multi-host training (not ported)")
+                    help="join the torchrun process group and train on "
+                         "the mesh.* mesh over it")
     args = ap.parse_args(argv)
-
-    if args.multihost:
-        raise NotImplementedError(
-            "--multihost is not ported: the port trains on one device "
-            "(ROADMAP queue 1 item 10)")
 
     cfg = config_from_args(args)
     if args.resume:
@@ -42,7 +44,15 @@ def main(argv=None):
               f"psnr={scalars['train/avg_psnr']:.2f} "
               f"rays/s={scalars['perf/rays_per_sec']:.0f}", flush=True)
 
-    return train(cfg, resume=args.resume, on_step=on_step, device=args.device)
+    if not args.multihost:
+        return train(cfg, resume=args.resume, on_step=on_step,
+                     device=args.device)
+    device = init_distributed(args.device)
+    try:
+        return train(cfg, resume=args.resume, device=device,
+                     on_step=on_step if is_primary() else None)
+    finally:
+        shutdown()
 
 
 if __name__ == "__main__":

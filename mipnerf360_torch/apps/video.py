@@ -7,9 +7,11 @@ Each video goes to the first writer that works: an mp4 through imageio, an
 MJPEG ``.avi`` beside it (``utils/video_io.py``, PIL's JPEG encoder), or the
 frames as ``<name>.mp4.frames/NNNN.png`` (the port's own PNG writer, which
 needs no imaging library). Reads the port's checkpoints and the JAX
-package's; renders on one device.
+package's. Under torchrun with more than one rank every rank renders its
+share of each frame and rank 0 writes the videos.
 
     python -m mipnerf360_torch.apps.video --ckpt ckpt/ [--device cpu]
+    torchrun --nproc_per_node=N -m mipnerf360_torch.apps.video --ckpt ckpt/
 """
 from __future__ import annotations
 
@@ -17,15 +19,16 @@ import argparse
 import os
 import time
 
-from ..core.rays import rays_to_device, resolve_device
+from ..core.rays import rays_to_device
 from ..data import get_dataset
 from ..data.viz import to8b, visualize_depth, visualize_normals
 from ..models.mipnerf360 import render_image
+from ..parallel.mesh import is_primary
 from ..train.checkpoint import restore_checkpoint
 from ..train.state import init_train_state
 from ..train.trainer import BackgroundStager
 from ..utils.png import save_png
-from .common import add_config_args, config_from_args
+from .common import add_config_args, config_from_args, render_setup
 
 
 def _write_video(path: str, frames, fps: int = 30) -> str:
@@ -61,7 +64,7 @@ def main(argv=None):
     """Parse ``argv`` (``sys.argv[1:]`` when None), render the path and
     write the videos. Returns {"step", "n_frames", "h", "w", "rays_per_sec"
     (rays over the host time of the render loop), "outputs" {video name:
-    where it went}}."""
+    where it went}, empty off rank 0}."""
     ap = argparse.ArgumentParser(description=__doc__)
     add_config_args(ap)
     ap.add_argument("--ckpt", default="")
@@ -74,20 +77,27 @@ def main(argv=None):
     ap.add_argument("--depth", action="store_true")
     ap.add_argument("--normals", action="store_true")
     args = ap.parse_args(argv)
-    device = resolve_device(args.device)
 
     # Resolve the checkpoint dir first, so that its saved config.json
     # supplies the model without re-typing --set.
     pre = config_from_args(args)
     ckpt_dir = args.ckpt or pre.train.checkpoint_dir
     cfg = config_from_args(args, ckpt_dir=ckpt_dir)
+    with render_setup(args, cfg) as (device, mesh):
+        return _render(args, cfg, ckpt_dir, device, mesh)
+
+
+def _render(args, cfg, ckpt_dir: str, device, mesh):
+    primary = is_primary()
     out_dir = args.out or ckpt_dir
-    os.makedirs(out_dir, exist_ok=True)
+    if primary:
+        os.makedirs(out_dir, exist_ok=True)
 
     template = init_train_state(cfg.model, cfg.train, device=device)
     template.generator = None  # rendering draws no noise
     state = restore_checkpoint(ckpt_dir, template, step=args.step)
-    print(f"restored step={state.step} from {ckpt_dir}")
+    if primary:
+        print(f"restored step={state.step} from {ckpt_dir}")
 
     ds = get_dataset(cfg.data, "render", white_bkgd=cfg.model.white_bkgd)
 
@@ -104,7 +114,8 @@ def main(argv=None):
         for i in range(ds.n_images):
             rays = stager.get()
             rgb, dist, acc = render_image(state.params, cfg.model, rays,
-                                          chunk=args.chunk, device=device)
+                                          chunk=args.chunk, mesh=mesh,
+                                          device=device)
             rgb, dist, acc = (x.cpu().numpy() for x in (rgb, dist, acc))
             rgb = rgb.reshape(ds.h, ds.w, 3)
             dist = dist.reshape(ds.h, ds.w)
@@ -115,19 +126,22 @@ def main(argv=None):
                     to8b(visualize_depth(dist, acc, ds.near, ds.far)))
             if args.normals:
                 normal_frames.append(to8b(visualize_normals(dist, acc)))
-            print(f"rendered pose {i + 1}/{ds.n_images}")
+            if primary:
+                print(f"rendered pose {i + 1}/{ds.n_images}")
     finally:
         stager.close()
     render_s = time.perf_counter() - t0
 
-    outputs = {"video": _write_video(os.path.join(out_dir, "video.mp4"),
-                                     rgb_frames)}
-    if args.depth:
-        outputs["depth"] = _write_video(os.path.join(out_dir, "depth.mp4"),
-                                        depth_frames)
-    if args.normals:
-        outputs["normals"] = _write_video(
-            os.path.join(out_dir, "normals.mp4"), normal_frames)
+    outputs = {}
+    if primary:
+        outputs["video"] = _write_video(os.path.join(out_dir, "video.mp4"),
+                                        rgb_frames)
+        if args.depth:
+            outputs["depth"] = _write_video(
+                os.path.join(out_dir, "depth.mp4"), depth_frames)
+        if args.normals:
+            outputs["normals"] = _write_video(
+                os.path.join(out_dir, "normals.mp4"), normal_frames)
     return {"step": int(state.step), "n_frames": ds.n_images, "h": ds.h,
             "w": ds.w, "rays_per_sec": ds.n_rays / render_s,
             "outputs": outputs}

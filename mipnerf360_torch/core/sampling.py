@@ -46,6 +46,14 @@ def _uniform(shape, like: torch.Tensor, generator=None):
     return u.to(like.device)
 
 
+def stratified_jitter(shape, like: torch.Tensor, generator=None):
+    """The randomized inverse-CDF draw's jitter for ``shape[-1]`` samples,
+    U[0, 1/n - eps), drawn as :func:`sorted_piecewise_constant_pdf` draws
+    it when it is given no noise."""
+    return _uniform(shape, like, generator) * float(
+        np.float32(1.0 / shape[-1]) - _F32_EPS)
+
+
 def sorted_piecewise_constant_pdf(bins, weights, num_samples: int,
                                   randomized: bool, u_typo: bool = False, *,
                                   noise=None, generator=None):
@@ -74,7 +82,7 @@ def sorted_piecewise_constant_pdf(bins, weights, num_samples: int,
     if randomized:
         base = torch.arange(num_samples, dtype=cdf.dtype, device=cdf.device) * s
         if noise is None:
-            noise = _uniform(shape, cdf, generator) * float(np.float32(s) - _F32_EPS)
+            noise = stratified_jitter(shape, cdf, generator)
         u = torch.clamp((base + base if u_typo else base) + noise,
                         max=float(np.float32(1.0) - _F32_EPS))
     else:

@@ -5,9 +5,8 @@
 [N, c] arrays; training batches are gathers from the stateless index stream
 of the native batcher, and eval iterates whole images. Moving batches to
 the card happens in the trainer. ``LazyRenderDataset``: the pixel-less
-render split, whose rays are generated one pose at a time. The
-process-local ``*_local`` variants come with the parallel slice (ROADMAP
-queue 1 item 10).
+render split, whose rays are generated one pose at a time. The ``*_local``
+variants give one data rank's rows of the same stream.
 """
 from __future__ import annotations
 
@@ -17,6 +16,13 @@ from typing import Callable, Iterator, Optional, Tuple
 import numpy as np
 
 from ..core.rays import Rays, rays_map
+
+
+def _rows_per_rank(batch_size: int, proc_count: int) -> int:
+    if batch_size % proc_count:
+        raise ValueError(f"batch of {batch_size} rays does not split over "
+                         f"{proc_count} data ranks")
+    return batch_size // proc_count
 
 
 @dataclass
@@ -57,6 +63,28 @@ class RayDataset:
         outs = [o.reshape(k, batch_size, o.shape[-1]) for o in outs]
         return Rays(*outs[:-1]), outs[-1]
 
+    def batch_stack_local(self, k: int, batch_size: int, seed: int,
+                          start_step: int, proc_index: int, proc_count: int
+                          ) -> Tuple[Rays, np.ndarray]:
+        """Data rank ``proc_index``'s shard of :meth:`batch_stack`: rows
+        [p*B/P, (p+1)*B/P) of each of the k per-step batches, drawn from the
+        same stateless counter stream, so that the P shards concatenated
+        along the batch axis are :meth:`batch_stack` bit for bit. The host's
+        gather scales with the rank's rows, not the global batch."""
+        from ..native import fill_batch_stack
+
+        b_loc = _rows_per_rank(batch_size, proc_count)
+        arrays = list(self.rays) + [self.pixels]
+        outs = [np.empty((k, b_loc, a.shape[-1]), np.float32) for a in arrays]
+        for i in range(k):
+            # step i's counters for rank p: a contiguous run of b_loc inside
+            # the step's [B] window of the global stream
+            start = (start_step + i) * batch_size + proc_index * b_loc
+            rows = fill_batch_stack(seed, start, b_loc, arrays)
+            for o, r in zip(outs, rows):
+                o[i] = r
+        return Rays(*outs[:-1]), outs[-1]
+
     def index_stack(self, k: int, batch_size: int, seed: int, start_step: int
                     ) -> np.ndarray:
         """[k, B] int32 ray indices of the SAME stateless stream that
@@ -68,6 +96,22 @@ class RayDataset:
         idx = sample_indices(seed, start_step * batch_size, k * batch_size,
                              self.n_rays)
         return idx.reshape(k, batch_size).astype(np.int32)
+
+    def index_stack_local(self, k: int, batch_size: int, seed: int,
+                          start_step: int, proc_index: int, proc_count: int
+                          ) -> np.ndarray:
+        """Data rank ``proc_index``'s [k, B/P] shard of :meth:`index_stack`
+        (the counter runs of :meth:`batch_stack_local`): the P shards
+        concatenated along the batch axis are the global stack bit for
+        bit."""
+        from ..native import sample_indices
+
+        b_loc = _rows_per_rank(batch_size, proc_count)
+        out = np.empty((k, b_loc), np.int32)
+        for i in range(k):
+            start = (start_step + i) * batch_size + proc_index * b_loc
+            out[i] = sample_indices(seed, start, b_loc, self.n_rays)
+        return out
 
     def image(self, i: int) -> Tuple[Rays, Optional[np.ndarray]]:
         """All rays (and pixels) of image ``i``, flattened [H*W, c]."""

@@ -14,6 +14,8 @@ import math
 
 import torch
 
+from ..parallel.collectives import all_reduce_, global_sum, group_size
+
 
 @torch.no_grad()
 def weight_bounds_einsum(t_fine, w_fine, t_coarse, data_shards: int = 1):
@@ -81,23 +83,31 @@ def weight_bounds(t_fine, w_fine, t_coarse, data_shards: int = 1):
     return weight_bounds_einsum(t_fine, w_fine, t_coarse)
 
 
-def proposal_loss(w_coarse, bounds, eps: float = 1e-6):
-    """Hinge loss sum(relu(bound - w)^2 / (w + eps)) / batch."""
-    batch = bounds.shape[0]
+def proposal_loss(w_coarse, bounds, eps: float = 1e-6, group=None):
+    """Hinge loss sum(relu(bound - w)^2 / (w + eps)) / batch; with
+    ``group``, over the global batch split across the group."""
+    batch = bounds.shape[0] * group_size(group)
     hinge = torch.clamp(bounds - w_coarse, min=0.0)
-    return torch.sum(hinge**2 / (w_coarse + eps)) / batch
+    return global_sum(torch.sum(hinge**2 / (w_coarse + eps)), group) / batch
 
 
 def distillation_loss(t_fine, w_fine, t_coarse, w_coarse,
-                      collapsed: bool = False, data_shards: int = 1):
+                      collapsed: bool = False, data_shards: int = 1,
+                      group=None):
     """Bounds + hinge in one call.
 
     ``collapsed=True`` reproduces the reference's batch-collapse quirk: each
     bound is the sum of every ray's per-ray bound, broadcast back to all
     rays. The default is the intended per-ray bound. ``data_shards`` sizes
-    the per-device einsum transient for the dispatch.
+    the per-device einsum transient for the dispatch; a rank of the port
+    holds only its own rows already, so it passes 1 where the JAX package
+    passes the data axis. ``group``: the rays are this rank's rows of a
+    batch split over the group; the collapsed bound and the hinge are the
+    global batch's.
     """
     b = weight_bounds(t_fine, w_fine, t_coarse, data_shards)
     if collapsed:
         b = torch.sum(b, dim=0, keepdim=True)
-    return proposal_loss(w_coarse, b.expand(w_coarse.shape))
+        if group is not None:
+            b = all_reduce_(b, group)   # the bound carries no gradient
+    return proposal_loss(w_coarse, b.expand(w_coarse.shape), group=group)

@@ -9,6 +9,8 @@ from __future__ import annotations
 
 import torch
 
+from ..parallel.collectives import global_sum, group_size
+
 
 def _midpoints_and_dists(s_vals):
     mids = 0.5 * (s_vals[..., :-1] + s_vals[..., 1:])
@@ -16,12 +18,14 @@ def _midpoints_and_dists(s_vals):
     return mids, dists
 
 
-def distortion_loss(s_vals, weights, reduction: str = "sum"):
+def distortion_loss(s_vals, weights, reduction: str = "sum", group=None):
     """Exact O(N) distortion loss.
 
     s_vals: [..., N+1] (sorted ascending); weights: [..., N].
     reduction "sum": sum over all rays (the reference's scale); "mean": the
-    per-ray mean, batch-size-invariant. Any other value raises.
+    per-ray mean, batch-size-invariant. Any other value raises. ``group``:
+    the rays are this rank's rows of a batch split over the group, and the
+    sum or mean is the global batch's.
     """
     mids, dists = _midpoints_and_dists(s_vals)
     cw = torch.cumsum(weights, dim=-1)
@@ -35,7 +39,10 @@ def distortion_loss(s_vals, weights, reduction: str = "sum"):
     if reduction not in ("mean", "sum"):  # a typo'd override must not
         raise ValueError(                 # silently become 4096x stronger
             f"distortion reduction must be 'mean' or 'sum', got {reduction!r}")
-    return torch.mean(per_ray) if reduction == "mean" else torch.sum(per_ray)
+    if group is None:
+        return torch.mean(per_ray) if reduction == "mean" else torch.sum(per_ray)
+    total = global_sum(torch.sum(per_ray), group)
+    return total / (per_ray.numel() * group_size(group)) if reduction == "mean" else total
 
 
 def distortion_loss_quadratic(s_vals, weights):

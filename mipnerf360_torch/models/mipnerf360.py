@@ -8,8 +8,10 @@ them with the same nesting. Where the JAX package threads a ``jax.random``
 key, the randomized branches here take explicit noise tensors (or draw from a
 ``torch.Generator``). Both composites go through ``ops.fused``: a CUDA tensor
 launches the Hopper kernel K1 (and K2 in the backward), a CPU tensor takes
-its plain version. The forward functions run under autograd; only
-``render_image`` runs under ``torch.inference_mode``.
+its plain version; only the sample-axis render composites the NeRF level
+across ranks, in plain PyTorch (``parallel/sample_axis.py``). The forward
+functions run under autograd; only ``render_image`` runs under
+``torch.inference_mode``.
 """
 from __future__ import annotations
 
@@ -25,9 +27,12 @@ from ..core.fused_encode import factored_ipe
 from ..core.gaussians import cast_rays
 from ..core.rays import Rays, rays_map, rays_to_device, resolve_device
 from ..core.rendering import composite_outputs
-from ..core.sampling import sample_along_rays
+from ..core.sampling import _uniform, sample_along_rays, stratified_jitter
 from ..core.spacing import t_to_s
 from ..ops import fused
+from ..parallel.collectives import gather_cat
+from ..parallel.mesh import make_mesh, rank_device
+from ..parallel.sample_axis import make_sample_sharded_composite
 from .mlp import apply_mlp, init_mlp
 
 Params = Dict[str, Any]
@@ -41,6 +46,18 @@ class RenderNoise(NamedTuple):
 
     sample: torch.Tensor
     resample: torch.Tensor
+
+
+def draw_render_noise(generator: torch.Generator, batch: int,
+                      num_samples: int, device) -> RenderNoise:
+    """The uniforms a randomized :func:`render_rays` of ``batch`` rays draws
+    from ``generator`` when it is given no noise, in the same order and bit
+    for bit. A data-parallel step draws them over the global batch and keeps
+    its own rows, so that every rank takes the one-process step's noise."""
+    like = torch.empty(0, device=device)
+    shape = (batch, num_samples + 1)
+    sample = _uniform(shape, like, generator)
+    return RenderNoise(sample, stratified_jitter(shape, like, generator))
 
 
 def _compute_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -133,22 +150,35 @@ def prop_forward(params: Params, cfg: ModelConfig, rays: Rays,
 
 
 def nerf_forward(params: Params, cfg: ModelConfig, rays: Rays, t_vals, weights,
-                 randomized: bool, *, noise=None, generator=None):
+                 randomized: bool, *, noise=None, generator=None,
+                 composite_fn=None, tp_group=None):
     """NeRF level: resample -> encode -> trunk -> heads -> composite.
 
     With ``cfg.remat`` the tower (trunk and heads) runs under
     ``torch.utils.checkpoint``, the port's ``jax.checkpoint``: its
     activations are not kept for the backward but recomputed there.
+
+    ``composite_fn`` (a ``parallel.sample_axis.SampleShardedComposite``)
+    splits the samples over the mesh's model axis: this rank encodes and
+    runs the tower on its own run of samples only, and the returned
+    ``t_vals``, ``weights`` and ``s_vals`` are that run's. ``tp_group``:
+    ``params["nerf"]["trunk"]`` is this rank's tensor-parallel shard over
+    that group (``parallel.mesh.shard_params``).
     """
     new_t = fused.resample_along_rays(t_vals, weights, randomized,
                                       cfg.resample_padding, cfg.use_pallas,
                                       u_typo=cfg.resample_u_typo,
                                       noise=noise, generator=generator)
+    full_t = new_t
+    if composite_fn is not None:
+        sl = composite_fn.local_slice(new_t.shape[-1] - 1)
+        new_t = new_t[..., sl.start:sl.stop + 1]
     x = _encode(cfg, rays, new_t)
     dt = _compute_dtype(cfg)
 
     def tower(nerf, x):
-        feat = apply_mlp(nerf["trunk"], x, _trunk_activations(cfg), dt)
+        feat = apply_mlp(nerf["trunk"], x, _trunk_activations(cfg), dt,
+                         tp_group=tp_group)
         raw_density = apply_mlp(
             nerf["density"], feat,
             ["sigmoid" if cfg.density_head_sigmoid else "none"], dt)
@@ -163,9 +193,14 @@ def nerf_forward(params: Params, cfg: ModelConfig, rays: Rays, t_vals, weights,
 
     rgb = raw_rgb * (1.0 + 2.0 * cfg.rgb_padding) - cfg.rgb_padding
     density = _softplus(raw_density[..., 0] + cfg.density_bias)
-    w = fused.compute_alpha_weights(
-        density, new_t, rays.directions, cfg.use_pallas)
-    comp_rgb, distance, acc = composite_outputs(rgb, w, new_t, cfg.white_bkgd)
+    if composite_fn is not None:
+        comp_rgb, distance, acc, w = composite_fn(rgb, density, full_t,
+                                                  rays.directions)
+    else:
+        w = fused.compute_alpha_weights(
+            density, new_t, rays.directions, cfg.use_pallas)
+        comp_rgb, distance, acc = composite_outputs(rgb, w, new_t,
+                                                    cfg.white_bkgd)
     s_vals = t_to_s(new_t, rays.near, rays.far)
     return {
         "rgb": comp_rgb,
@@ -179,21 +214,22 @@ def nerf_forward(params: Params, cfg: ModelConfig, rays: Rays, t_vals, weights,
 
 def render_rays(params: Params, cfg: ModelConfig, rays: Rays, randomized: bool,
                 *, noise: Optional[RenderNoise] = None,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                composite_fn=None, tp_group=None):
     """Full two-level forward, returning both levels' internals.
 
     With ``randomized``, ``noise`` supplies both levels' uniform draws; when
-    it is None they are drawn from ``generator``.
+    it is None they are drawn from ``generator``. ``composite_fn`` and
+    ``tp_group`` apply to the NeRF level only (see :func:`nerf_forward`):
+    the proposal level, whose weights feed the resampling, runs whole on
+    every rank.
     """
-    if cfg.sample_shards > 1:
-        raise NotImplementedError(
-            "sample_shards > 1 (the sample-axis composite) is not ported "
-            "yet (ROADMAP queue 1 item 10)")
     n_prop, n_nerf = (None, None) if noise is None else noise
     t_prop, w_prop = prop_forward(params, cfg, rays, randomized,
                                   noise=n_prop, generator=generator)
     out = nerf_forward(params, cfg, rays, t_prop, w_prop, randomized,
-                       noise=n_nerf, generator=generator)
+                       noise=n_nerf, generator=generator,
+                       composite_fn=composite_fn, tp_group=tp_group)
     out["t_prop"] = t_prop
     out["w_prop"] = w_prop
     return out
@@ -209,14 +245,36 @@ def render_image(params: Params, cfg: ModelConfig, rays: Rays, *,
     ``chunk``, chunks are rendered in a host loop under
     ``torch.inference_mode()``, and the results stay on ``device``.
     Returns (rgb [n,3], distance [n], acc [n]).
+
+    With ``mesh`` (a ``parallel.Mesh``; ``device`` is then the mesh's), the
+    chunk is rounded up to a multiple of the data axis, each data rank
+    renders its share of every chunk, and one gather per chunk gives every
+    rank the whole result. A mesh with a model axis holds the
+    tensor-parallel shards of the trunk (``parallel.mesh.shard_params``).
+    With ``cfg.sample_shards > 1`` the NeRF level's samples are split over
+    the model axis instead (``parallel/sample_axis.py``; params whole): on
+    ``mesh`` when its model axis is ``sample_shards`` wide, else on the
+    ``(world // sample_shards, sample_shards)`` mesh (on ``mesh``'s device,
+    or on ``device`` without one), which needs a process group whose size
+    ``sample_shards`` divides.
     """
-    if mesh is not None or cfg.sample_shards > 1:
-        raise NotImplementedError(
-            "render_image on a mesh (data- or sample-parallel) is not ported "
-            "yet (ROADMAP queue 1 item 10)")
-    device = resolve_device(device)
+    composite_fn = tp_group = None
+    if cfg.sample_shards > 1:
+        if mesh is None or mesh.model != cfg.sample_shards:
+            mesh = make_mesh(-1, cfg.sample_shards,
+                             device=(rank_device(device) if mesh is None
+                                     else mesh.device))
+        composite_fn = make_sample_sharded_composite(mesh, cfg.white_bkgd)
+    elif mesh is not None:
+        tp_group = mesh.model_group
+    device = mesh.device if mesh is not None else resolve_device(device)
     rays = rays_to_device(rays, device)
     params = map_params(lambda p: p.to(device), params)
+    lo, per = 0, chunk
+    if mesh is not None:
+        chunk = -(-chunk // mesh.data) * mesh.data
+        per = chunk // mesh.data
+        lo = mesh.data_index * per
     n = rays.origins.shape[0]
     pad = (-n) % chunk
     if pad:
@@ -225,9 +283,16 @@ def render_image(params: Params, cfg: ModelConfig, rays: Rays, *,
             rays)
     rgb, distance, acc = [], [], []
     with torch.inference_mode():
-        for start in range(0, n + pad, chunk):
-            chunk_rays = rays_map(lambda x: x[start:start + chunk], rays)
-            out = render_rays(params, cfg, chunk_rays, randomized=False)
+        for start in range(lo, n + pad, chunk):
+            chunk_rays = rays_map(lambda x: x[start:start + per], rays)
+            out = render_rays(params, cfg, chunk_rays, randomized=False,
+                              composite_fn=composite_fn, tp_group=tp_group)
+            if mesh is not None:
+                packed = torch.cat([out["rgb"], out["distance"][:, None],
+                                    out["acc"][:, None]], dim=-1)
+                packed = gather_cat(packed, mesh.data_group, dim=0)
+                out = {"rgb": packed[:, :3], "distance": packed[:, 3],
+                       "acc": packed[:, 4]}
             rgb.append(out["rgb"])
             distance.append(out["distance"])
             acc.append(out["acc"])
@@ -281,7 +346,8 @@ class MipNeRF360(nn.Module):
         return render_rays(self.params(), self.cfg, rays, randomized,
                            noise=noise, generator=generator)
 
-    def render_image(self, rays: Rays, *, chunk: int = 8192, device="cuda"):
+    def render_image(self, rays: Rays, *, chunk: int = 8192, mesh=None,
+                     device="cuda"):
         """:func:`render_image` with this module's params."""
         return render_image(self.params(), self.cfg, rays, chunk=chunk,
-                            device=device)
+                            mesh=mesh, device=device)

@@ -17,6 +17,11 @@ Gradients follow what ``jax.grad`` of the JAX package computes: the f32
 cotangent of each product is multiplied by the compute-dtype operand with f32
 accumulation, and dX and dW are rounded to the compute dtype (the cotangent
 of each ``.astype``) before they come back as f32.
+
+With a tensor-parallel group, :func:`apply_mlp` runs this rank's shard of
+the stack (the JAX package leaves that to GSPMD through its
+``param_shardings``); the sums over the group are taken in f32, before any
+rounding, so the shards compute the one-rank stack up to summation order.
 """
 from __future__ import annotations
 
@@ -24,6 +29,8 @@ from typing import Sequence
 
 import numpy as np
 import torch
+
+from ..parallel.collectives import all_reduce_, gather
 
 # Activations are referenced by name so configs stay serializable.
 ACTIVATIONS = {
@@ -85,71 +92,108 @@ class _MatmulF32(torch.autograd.Function):
     compute-dtype values (a hidden layer, whose output is cast before its
     activation): one compute-dtype GEMM is then exact up to summation order.
     Otherwise (an MLP's last layer) g is true f32 and is split in hi + lo.
+    f32 operands, and the CPU, multiply the f32 cotangent in f32, as
+    ordinary autograd does.
+
+    With a tensor-parallel ``group`` this is one shard of a layer, in
+    Megatron's pair: a column split (w [in, out/P]) all-reduces dX, a sum
+    over the ranks' columns, in f32 before it is rounded; a row split (w
+    [in/P, out], x the rank's [.., in/P]) all-reduces its f32 partial
+    outputs forward, and their cotangent reaches each partial unchanged.
     """
 
     @staticmethod
-    def forward(ctx, x, w, g_rounded: bool):
+    def forward(ctx, x, w, g_rounded: bool, group=None,
+                row_split: bool = False):
         ctx.save_for_backward(x, w)
-        ctx.g_rounded = g_rounded
-        return _mm_f32(x, w)
+        ctx.g_rounded, ctx.group, ctx.row_split = g_rounded, group, row_split
+        y = _mm(x, w)
+        return all_reduce_(y, group) if group is not None and row_split else y
 
     @staticmethod
     def backward(ctx, g):
         x, w = ctx.saved_tensors
-        parts = [g.to(x.dtype)] if ctx.g_rounded else _split(g, x.dtype)
+        if x.dtype == torch.float32 or not x.is_cuda:
+            parts = [g]
+        else:
+            parts = [g.to(x.dtype)] if ctx.g_rounded else _split(g, x.dtype)
         dx = dw = None
         if ctx.needs_input_grad[0]:
-            dx = _mm_f32(parts[0], w.t())
+            dx = _mm(parts[0], w.t())
             for p in parts[1:]:
-                dx += _mm_f32(p, w.t())
+                dx += _mm(p, w.t())
+            if ctx.group is not None and not ctx.row_split:
+                all_reduce_(dx, ctx.group)
             dx = dx.to(x.dtype)
         if ctx.needs_input_grad[1]:
-            dw = _mm_f32(x.t(), parts[0])
+            dw = _mm(x.t(), parts[0])
             for p in parts[1:]:
-                dw += _mm_f32(x.t(), p)
+                dw += _mm(x.t(), p)
             dw = dw.to(w.dtype)
-        return dx, dw, None
+        return dx, dw, None, None, None
 
 
-def _matmul_f32(x, w, g_rounded: bool = False):
+def _mm(a, b):
+    """a @ b with an f32 result: ``torch.mm`` for f32 operands, else
+    :func:`_mm_f32`."""
+    if a.dtype == b.dtype == torch.float32:
+        return torch.mm(a, b)
+    return _mm_f32(a, b)
+
+
+def _matmul_f32(x, w, g_rounded: bool = False, group=None,
+                row_split: bool = False):
     """[..., in] @ [in, out] with compute-dtype operands and an f32 product.
 
-    float32 operands take ``torch.mm``. Other compute dtypes take
-    :func:`_mm_f32`: on the CPU with ordinary autograd, on CUDA through
-    :class:`_MatmulF32`, whose backward is written out (``g_rounded`` as
-    there).
+    In one process, float32 operands take ``torch.mm``, and other compute
+    dtypes :func:`_mm_f32`: on the CPU with ordinary autograd, on CUDA
+    through :class:`_MatmulF32`, whose backward is written out
+    (``g_rounded`` as there). A shard of a tensor-parallel layer (``group``
+    and ``row_split`` as there) always takes :class:`_MatmulF32`.
     """
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
-    if x.dtype == torch.float32:
+    if group is not None or (x.is_cuda and x.dtype != torch.float32):
+        y = _MatmulF32.apply(x2, w, g_rounded, group, row_split)
+    elif x.dtype == torch.float32:
         y = torch.mm(x2, w)
-    elif x.is_cuda:
-        y = _MatmulF32.apply(x2, w, g_rounded)
     else:
         y = _mm_f32(x2, w)
     return y.reshape(*lead, w.shape[-1])
 
 
 def apply_linear(layer, x, compute_dtype=torch.bfloat16, *,
-                 g_rounded: bool = False):
+                 g_rounded: bool = False, group=None, row_split: bool = False):
     """``x @ w + b`` with compute-dtype operands and an f32 result;
     ``g_rounded``: the caller casts the result to ``compute_dtype``, so its
-    cotangent holds compute-dtype values (see :class:`_MatmulF32`)."""
+    cotangent holds compute-dtype values (see :class:`_MatmulF32`). With
+    ``group``, this rank's shard of a column-split (``row_split`` False: w
+    [in, out/P], b [out/P]) or row-split (w [in/P, out], b [out], added
+    after the sum) layer."""
     y = _matmul_f32(x.to(compute_dtype), layer["w"].to(compute_dtype),
-                    g_rounded)
+                    g_rounded, group, row_split)
     return y + layer["b"]
 
 
 def apply_mlp(params, x, activations: Sequence[str],
-              compute_dtype=torch.bfloat16):
-    """Apply the stack; ``activations[i]`` follows layer i ("none" for linear out)."""
+              compute_dtype=torch.bfloat16, tp_group=None):
+    """Apply the stack; ``activations[i]`` follows layer i ("none" for linear out).
+
+    ``tp_group``: the stack is split over this group, Megatron-style (the
+    layout of ``parallel/mesh.py::shard_params``): even layers split their
+    columns, odd layers their rows, so the activations alternate between
+    this rank's columns and whole. An odd depth ends on split columns, which
+    are gathered (every rank uses the whole output alike)."""
     layers = params["layers"]
     if len(layers) != len(activations):
         raise ValueError(f"{len(layers)} layers but {len(activations)} activations")
     for i, (layer, act) in enumerate(zip(layers, activations)):
         hidden = i + 1 < len(layers)
-        y = apply_linear(layer, x, compute_dtype, g_rounded=hidden)
+        y = apply_linear(layer, x, compute_dtype, g_rounded=hidden,
+                         group=tp_group, row_split=i % 2 == 1)
         if hidden:
             y = y.to(compute_dtype)
         x = ACTIVATIONS[act](y)
+    if tp_group is not None and len(layers) % 2:
+        x = gather(x, tp_group, dim=-1, sum_backward=False)
     return x.to(torch.float32)

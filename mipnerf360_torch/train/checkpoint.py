@@ -9,6 +9,9 @@ payload is ``torch.save`` of :func:`train.state.state_dict` in
 :func:`restore_checkpoint` loads it with ``torch.load(...,
 weights_only=True)``, or reads the JAX package's ``ckpt_<step>.msgpack``
 (``interop.read_jax_checkpoint``) where no ``.pt`` of that step exists.
+Under a process group only global rank 0 writes (a tensor-parallel run
+hands it the gathered state, ``parallel.mesh.gather_state``); every rank
+reads.
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ from typing import Optional
 import torch
 
 from ..models.mipnerf360 import map_params
+from ..parallel.mesh import is_primary
 from .state import TrainState, leaves, load_state_dict, state_dict
 
 _CKPT_RE = re.compile(r"^ckpt_(\d+)\.(pt|msgpack)$")
@@ -56,6 +60,8 @@ class AsyncCheckpointer:
 
     def save(self, ckpt_dir: str, state: TrainState, keep: int = 3,
              name: Optional[str] = None, manifest_extra: Optional[dict] = None):
+        if not is_primary():
+            return
         snap = _map_tensors(torch.Tensor.clone, state_dict(state))
         self.wait()
         self._pending = self._pool.submit(
@@ -83,7 +89,10 @@ def save_checkpoint(ckpt_dir: str, state: TrainState, keep: int = 3,
     ckpt_best.pt, which the numeric pruner never touches); restore it with
     ``restore_checkpoint(..., step="best")``. ``manifest_extra`` keys are
     merged into manifest.json (read-modify-write, so a "best" save records
-    best_step without clobbering latest_step)."""
+    best_step without clobbering latest_step). Off global rank 0 it writes
+    nothing and returns the path rank 0 writes."""
+    if not is_primary():
+        return os.path.join(ckpt_dir, f"ckpt_{name if name else state.step}.pt")
     return _write(ckpt_dir, state_dict(state), keep, name, manifest_extra)
 
 

@@ -1,13 +1,20 @@
 """Training driver: data -> device -> K-step loops -> metrics/checkpoints
 (counterpart of ``mipnerf360_tpu/train/trainer.py``).
 
-One device. The batch stream is the JAX package's stateless index stream, so
-the port trains on the same batches; a bank of every train ray is held on
-the device and each chunk ships only its [K, B] index stack (or, in host
-mode, the gathered rays). Steps run in chunks of ``log_every`` with one host
-sync per chunk, where the per-step metrics come back in one transfer; evals,
+The batch stream is the JAX package's stateless index stream, so the port
+trains on the same batches; a bank of every train ray is held on the device
+and each chunk ships only its [K, B] index stack (or, in host mode, the
+gathered rays). Steps run in chunks of ``log_every`` with one host sync per
+chunk, where the per-step metrics come back in one transfer; evals,
 ``keep_best`` and async checkpoints land on chunk boundaries; exact resume
 restores counters, params, moments and the noise generator.
+
+In a process group (``apps.train --multihost`` under torchrun) the trainer
+runs on the ``cfg.mesh`` mesh (``parallel/mesh.py``): each rank stages only
+its rows of each batch, the params start from rank 0's (broadcast after
+init and after a restore), the evals are collective, and only rank 0 writes
+metrics, ``config.json`` and checkpoints. Every collective sits outside
+any branch that one rank takes alone.
 """
 from __future__ import annotations
 
@@ -28,6 +35,9 @@ from ..core.rays import rays_to_device, resolve_device
 from ..data import get_dataset
 from ..losses.photometric import photometric_loss
 from ..models.mipnerf360 import render_image, render_rays
+from ..parallel.mesh import (any_rank, broadcast_state_, gather_params,
+                             gather_state, is_primary, make_mesh, rank0_value,
+                             rank_device, shard_batch, shard_state)
 from ..utils import metrics
 from ..utils.logging import MetricsLogger, Timer
 from .checkpoint import (AsyncCheckpointer, latest_checkpoint_step,
@@ -60,26 +70,39 @@ def use_device_bank(cfg: Config, dataset) -> bool:
     return _bank_nbytes(dataset) <= _BANK_AUTO_BYTES
 
 
-def evaluate_batch(cfg: Config, params, rays, pixels, device="cuda") -> float:
+def evaluate_batch(cfg: Config, params, rays, pixels, device="cuda",
+                   mesh=None) -> float:
     """Deterministic single-batch PSNR (the reference's in-training eval of
-    one batch). ``rays`` and ``pixels`` are host arrays or tensors."""
-    device = resolve_device(device)
+    one batch). ``rays`` and ``pixels`` are host arrays or tensors. On
+    ``mesh`` each data rank renders its rows and the PSNR is the whole
+    batch's (collective)."""
+    group = tp_group = None
+    if mesh is None:
+        rays = rays_to_device(rays, resolve_device(device))
+        pixels = torch.as_tensor(pixels, device=rays.origins.device)
+    else:
+        rays, pixels = shard_batch(mesh, rays, pixels)
+        group, tp_group = mesh.data_group, mesh.model_group
     with torch.inference_mode():
-        out = render_rays(params, cfg.model, rays_to_device(rays, device),
-                          randomized=False)
-        _, psnr = photometric_loss(
-            out["rgb"], torch.as_tensor(pixels, device=device))
+        out = render_rays(params, cfg.model, rays, randomized=False,
+                          tp_group=tp_group)
+        _, psnr = photometric_loss(out["rgb"], pixels, group)
     return float(psnr)
 
 
 def evaluate_image(cfg: Config, params, dataset, index: int,
-                   device="cuda") -> dict:
+                   device="cuda", mesh=None) -> dict:
     """Render one full held-out view and score it (PSNR, and SSIM when the
     view is large enough for the 11x11 SSIM window), through the chunked
-    ``render_image`` of apps/eval."""
+    ``render_image`` of apps/eval (on ``mesh``: collective, and every rank
+    scores the whole view)."""
     rays_np, pix = dataset.image(index)
+    if mesh is not None and mesh.model > 1 and cfg.model.sample_shards > 1:
+        # the sample-axis render takes whole params, not the trunk's shards
+        params = gather_params(mesh, params)
     rgb, _, _ = render_image(params, cfg.model, rays_np,
-                             chunk=cfg.train.eval_image_chunk, device=device)
+                             chunk=cfg.train.eval_image_chunk, mesh=mesh,
+                             device=device)
     rgb = rgb.cpu().numpy().reshape(dataset.h, dataset.w, 3)
     out = {}
     if pix is not None:
@@ -90,7 +113,8 @@ def evaluate_image(cfg: Config, params, dataset, index: int,
     return out
 
 
-def evaluate_images(cfg: Config, params, dataset, *, device="cuda") -> dict:
+def evaluate_images(cfg: Config, params, dataset, *, device="cuda",
+                    mesh=None) -> dict:
     """Score held-out views and return MEAN eval/psnr_image + eval/ssim.
 
     ``train.eval_image_views`` selects coverage: -1 renders ALL test views;
@@ -102,7 +126,8 @@ def evaluate_images(cfg: Config, params, dataset, *, device="cuda") -> dict:
     indices = list(range(n if k <= 0 or k >= n else k))
     psnrs, ssims, out = {}, {}, {}
     for i in indices:
-        one = evaluate_image(cfg, params, dataset, i, device=device)
+        one = evaluate_image(cfg, params, dataset, i, device=device,
+                             mesh=mesh)
         if "eval/psnr_image" in one:
             psnrs[i] = one["eval/psnr_image"]
         if "eval/ssim" in one:
@@ -116,10 +141,15 @@ def evaluate_images(cfg: Config, params, dataset, *, device="cuda") -> dict:
 
 
 def stage_batch(device, dataset, k: int, batch_size: int, seed: int,
-                at_step: int):
+                at_step: int, mesh=None):
     """Assemble a [K, B, c] stack of k per-step batches (one native-batcher
-    gather) and copy it to ``device``."""
-    rays_np, pix_np = dataset.batch_stack(k, batch_size, seed, at_step)
+    gather) and copy it to ``device``; on ``mesh``, only this rank's
+    [K, B/P, c] rows of it (``RayDataset.batch_stack_local``)."""
+    if mesh is None:
+        rays_np, pix_np = dataset.batch_stack(k, batch_size, seed, at_step)
+    else:
+        rays_np, pix_np = dataset.batch_stack_local(
+            k, batch_size, seed, at_step, mesh.data_index, mesh.data)
     return (rays_to_device(rays_np, device),
             torch.as_tensor(pix_np, device=device))
 
@@ -261,13 +291,24 @@ def train(cfg: Config, *, max_steps: Optional[int] = None,
           on_step: Optional[Callable[[int, dict], None]] = None,
           device="cuda") -> TrainState:
     """Run training on ``device`` (the card unless the caller passes
-    ``device="cpu"``); returns the final TrainState."""
-    device = resolve_device(device)
-    if cfg.mesh.data not in (-1, 1) or cfg.mesh.model != 1:
-        raise NotImplementedError(
-            f"mesh data={cfg.mesh.data} model={cfg.mesh.model}: the port "
-            "trains on one device (mesh.data in {-1, 1}, mesh.model = 1); "
-            "data and tensor parallelism are ROADMAP queue 1 item 10")
+    ``device="cpu"``); returns the final TrainState (on a mesh with a
+    model axis, this rank's shard of it).
+
+    In a process group, on the ``cfg.mesh`` mesh over it (``data = -1`` is
+    ``world_size // model``); without one, on one device, where a mesh of
+    more than one rank raises."""
+    mesh = None
+    if torch.distributed.is_initialized():
+        device = rank_device(device)
+        mesh = make_mesh(cfg.mesh.data, cfg.mesh.model, device=device)
+    else:
+        device = resolve_device(device)
+        if cfg.mesh.model != 1 or cfg.mesh.data not in (-1, 1):
+            raise ValueError(
+                f"mesh data={cfg.mesh.data} model={cfg.mesh.model} needs a "
+                "process group of that many ranks: launch apps.train "
+                "--multihost under torchrun")
+    primary = is_primary()
     max_steps = max_steps if max_steps is not None else cfg.train.max_steps
 
     # Anchor the LR-decay horizon NOW so it survives resume-extension: the
@@ -292,21 +333,30 @@ def train(cfg: Config, *, max_steps: Optional[int] = None,
 
     ckpt_dir = cfg.train.checkpoint_dir
     state = init_train_state(cfg.model, cfg.train, device=device)
-    start_step = 0
     if resume and latest_checkpoint_step(ckpt_dir) is not None:
         state = restore_checkpoint(ckpt_dir, state)
-        start_step = state.step
+    if mesh is not None:
+        # rank 0's state and step, whatever checkpoint each rank found
+        broadcast_state_(state)
+        state = shard_state(mesh, state)
+    start_step = state.step
+
+    def full_state():
+        """The whole state for a checkpoint (collective on a model axis)."""
+        return state if mesh is None else gather_state(mesh, state)
 
     bank = None
     if use_device_bank(cfg, dataset):
+        # replicated: on a mesh every rank holds the whole bank
         bank = (rays_to_device(dataset.rays, device),
                 torch.as_tensor(dataset.pixels, device=device))
-        loop_fn = make_banked_train_loop(cfg)
+        loop_fn = make_banked_train_loop(cfg, mesh=mesh)
     else:
-        loop_fn = make_train_loop(cfg)
+        loop_fn = make_train_loop(cfg, mesh=mesh)
     logger = MetricsLogger(ckpt_dir)
-    with open(os.path.join(ckpt_dir, "config.json"), "w") as f:
-        f.write(cfg.to_json())
+    if primary:
+        with open(os.path.join(ckpt_dir, "config.json"), "w") as f:
+            f.write(cfg.to_json())
     # Which staging stage_mode resolved to, and for how many bytes of rays.
     logger.log(start_step, {"data/device_bank": float(bank is not None),
                             "data/train_bytes": float(_bank_nbytes(dataset))})
@@ -330,15 +380,19 @@ def train(cfg: Config, *, max_steps: Optional[int] = None,
         k = chunk_len(at_step, max_steps, chunk)
         B, seed = cfg.train.batch_size, cfg.train.seed
         if bank is not None:
-            idx = torch.as_tensor(dataset.index_stack(k, B, seed, at_step))
-            return k, (*bank, idx.to(device))
-        return k, stage_batch(device, dataset, k, B, seed, at_step)
+            idx = (dataset.index_stack(k, B, seed, at_step) if mesh is None
+                   else dataset.index_stack_local(k, B, seed, at_step,
+                                                  mesh.data_index, mesh.data))
+            return k, (*bank, torch.as_tensor(idx).to(device))
+        return k, stage_batch(device, dataset, k, B, seed, at_step, mesh)
 
     step = start_step
     # Best-eval tracking persists across --resume via the manifest, so a
     # resumed run's first eval cannot overwrite a better ckpt_best.
-    best_eval_psnr = (_best_psnr_from_manifest(ckpt_dir) if resume
-                      else float("-inf"))
+    # On a mesh, rank 0's manifest decides for all ranks (the keep_best
+    # branch holds a collective).
+    best_eval_psnr = rank0_value(_best_psnr_from_manifest(ckpt_dir) if resume
+                                 else float("-inf"), mesh)
     preempted, restore_signals = install_preemption_handler()
     ckpt_writer = AsyncCheckpointer()
     nonfinite_warned = False
@@ -353,7 +407,9 @@ def train(cfg: Config, *, max_steps: Optional[int] = None,
     else:
         staged = stage(step) if step < max_steps else None
     try:
-        while step < max_steps and not preempted.is_set():
+        # On a mesh every rank stops at the same boundary: a preemption
+        # notice seen by any rank stops them all.
+        while step < max_steps and not any_rank(preempted.is_set(), mesh):
             if stager is not None:
                 staged = stager.get()
             if staged is None:
@@ -392,9 +448,11 @@ def train(cfg: Config, *, max_steps: Optional[int] = None,
                 # Once per run: a NaN loss usually means training is dead.
                 nonfinite_warned = True
                 bad = {n: v for n, v in aux_host.items() if not np.isfinite(v)}
-                print(f"[warn] non-finite training metrics at step "
-                      f"{step + k}: {bad} — training is likely dead; set "
-                      "train.check_nans=true to abort with offending params")
+                if primary:
+                    print(f"[warn] non-finite training metrics at step "
+                          f"{step + k}: {bad} — training is likely dead; set "
+                          "train.check_nans=true to abort with offending "
+                          "params")
             if cfg.train.check_nans:
                 from ..utils.checks import assert_tree_finite
 
@@ -419,7 +477,7 @@ def train(cfg: Config, *, max_steps: Optional[int] = None,
 
             if crossed(cfg.train.eval_every, step, new_step):
                 er, ep = next(eval_batches)
-                psnr = evaluate_batch(cfg, state.params, er, ep, device)
+                psnr = evaluate_batch(cfg, state.params, er, ep, device, mesh)
                 # Noise-dominated (one batch), kept for cadence parity with
                 # the reference's eval; eval/psnr_image is the quality
                 # signal. On the channel-summed MSE scale, 10*log10(3) dB
@@ -429,20 +487,23 @@ def train(cfg: Config, *, max_steps: Optional[int] = None,
             if (crossed(cfg.train.eval_image_every, step, new_step)
                     and eval_dataset.n_images > 0):
                 img_metrics = evaluate_images(cfg, state.params, eval_dataset,
-                                              device=device)
+                                              device=device, mesh=mesh)
                 logger.log(new_step, img_metrics)
                 mean_psnr = img_metrics.get("eval/psnr_image")
+                # Every rank scored the whole views alike, so every rank
+                # takes this branch (and the gather in full_state) together.
                 if (cfg.train.keep_best and mean_psnr is not None
                         and mean_psnr > best_eval_psnr):
                     best_eval_psnr = mean_psnr
                     ckpt_writer.save(
-                        ckpt_dir, state, cfg.train.keep_checkpoints,
+                        ckpt_dir, full_state(), cfg.train.keep_checkpoints,
                         name="best",
                         manifest_extra={"best_psnr_image": mean_psnr})
 
             if crossed(cfg.train.save_every, step, new_step):
                 # Snapshot on the device + background write.
-                ckpt_writer.save(ckpt_dir, state, cfg.train.keep_checkpoints)
+                ckpt_writer.save(ckpt_dir, full_state(),
+                                 cfg.train.keep_checkpoints)
             step = new_step
 
     finally:
@@ -456,8 +517,10 @@ def train(cfg: Config, *, max_steps: Optional[int] = None,
         except Exception:
             logger.close()
             raise
-    if preempted.is_set() and step < max_steps:
+    if step < max_steps and primary:
         print(f"[preempted] flushing checkpoint at step {step}")
-    save_checkpoint(ckpt_dir, state, cfg.train.keep_checkpoints)
+    save_checkpoint(ckpt_dir, full_state(), cfg.train.keep_checkpoints)
     logger.close()
+    if mesh is not None:
+        mesh.barrier()  # rank 0's files are complete when any rank returns
     return state

@@ -1,6 +1,7 @@
 """Metrics logging: JSONL always, TensorBoard when ``torch.utils.tensorboard``
-imports (counterpart of ``mipnerf360_tpu/utils/logging.py``). The port runs
-one process, which is always the one that writes."""
+imports (counterpart of ``mipnerf360_tpu/utils/logging.py``). Under a
+process group only global rank 0 writes; the other ranks' loggers do
+nothing."""
 from __future__ import annotations
 
 import json
@@ -8,10 +9,16 @@ import os
 import time
 from typing import Dict
 
+from ..parallel.mesh import is_primary
+
 
 class MetricsLogger:
     def __init__(self, log_dir: str):
         self.log_dir = log_dir
+        self.primary = is_primary()
+        self._jsonl = self._tb = None
+        if not self.primary:
+            return
         os.makedirs(log_dir, exist_ok=True)
         self._jsonl = open(os.path.join(log_dir, "metrics.jsonl"), "a")
         try:
@@ -22,6 +29,8 @@ class MetricsLogger:
             self._tb = None
 
     def log(self, step: int, scalars: Dict[str, float]):
+        if not self.primary:
+            return
         rec = {"step": step, "time": time.time()}
         rec.update({k: float(v) for k, v in scalars.items()})
         self._jsonl.write(json.dumps(rec) + "\n")
@@ -31,7 +40,8 @@ class MetricsLogger:
                 self._tb.add_scalar(k, float(v), global_step=step)
 
     def close(self):
-        self._jsonl.close()
+        if self._jsonl is not None:
+            self._jsonl.close()
         if self._tb is not None:
             self._tb.close()
 

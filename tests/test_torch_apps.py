@@ -101,22 +101,25 @@ def test_eval_of_a_jax_run_matches_jax_eval(tmp_path, capsys):
         assert np.abs(a.astype(int) - b.astype(int)).max() <= 1
 
 
-def test_unported_paths_raise(tmp_path):
+def test_unported_paths_raise(tmp_path, monkeypatch):
     """Every dataset is ported (the Blender loader reads its directory, so a
     missing one raises FileNotFoundError) and ``--lpips`` takes a weights
-    file; what is still unported names ROADMAP queue 1 item 10."""
+    file. The parallel paths need a process group: ``--multihost`` outside
+    torchrun, and the sample-axis render in one process, raise instead of
+    running on one rank."""
     with pytest.raises(FileNotFoundError, match="transforms_train.json"):
         get_dataset(DataConfig(dataset="blender", base_dir=str(tmp_path)),
                     "train")
     with pytest.raises(ValueError, match="unknown dataset"):
         get_dataset(DataConfig(dataset="nope"), "train")
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
+    for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(k, raising=False)
+    with pytest.raises(RuntimeError, match="no process group to join"):
         train_app.main(["--multihost", "--device", "cpu"])
     cfg = ModelConfig(num_samples=4, hidden_proposal=8, hidden_nerf=8,
-                      nerf_depth=1, compute_dtype="float32")
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        render_image(init_model(cfg), cfg, dummy_rays(2), mesh=object(),
-                     device="cpu")
+                      nerf_depth=1, compute_dtype="float32", sample_shards=2)
+    with pytest.raises(RuntimeError, match="needs a process group"):
+        render_image(init_model(cfg), cfg, dummy_rays(2), device="cpu")
 
 
 def test_entry_points_need_the_card_unless_asked_for_cpu(tmp_path):

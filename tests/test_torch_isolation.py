@@ -46,11 +46,50 @@ def test_port_and_chip_smoke_import_no_jax():
         import chip_smoke
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "mipnerf360_tpu"))
-        print(len(names), bad)
-        sys.exit(1 if bad or len(names) < 20 else 0)
+        parallel = {"mipnerf360_torch.parallel.mesh",
+                    "mipnerf360_torch.parallel.collectives",
+                    "mipnerf360_torch.parallel.sample_axis"}
+        print(len(names), bad, sorted(parallel - set(names)))
+        sys.exit(1 if bad or len(names) < 20 or parallel - set(names) else 0)
     """)
     res = _run(["-c", code], cwd=REPO)
     assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_failed_process_group_raises(monkeypatch):
+    """A rendezvous that fails raises; nothing goes on in one process."""
+    import torch.distributed as dist
+
+    from mipnerf360_torch.parallel import init_distributed
+
+    with pytest.raises((RuntimeError, ValueError)):
+        init_distributed("cpu", init_method="nowhere://rendezvous", rank=0,
+                         world_size=2)
+    assert not dist.is_initialized()
+    for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(k, raising=False)
+    with pytest.raises(RuntimeError, match="torchrun"):
+        init_distributed("cpu")
+    assert not dist.is_initialized()
+
+
+def test_mesh_over_gloo_needs_its_device(tmp_path):
+    """Gloo serves the CPU and the card alike, so a mesh over it is not
+    placed on the CPU by default: its device must be given."""
+    import torch.distributed as dist
+
+    from mipnerf360_torch.parallel import init_distributed, make_mesh, shutdown
+
+    init_distributed("cpu", init_method=f"file://{tmp_path / 'rdv'}", rank=0,
+                     world_size=1)
+    try:
+        with pytest.raises(ValueError, match="needs its device"):
+            make_mesh()
+        mesh = make_mesh(device="cpu")
+        assert (mesh.data, mesh.model, str(mesh.device)) == (1, 1, "cpu")
+    finally:
+        shutdown()
+    assert not dist.is_initialized()
 
 
 def test_render_image_needs_the_card_unless_asked_for_cpu():

@@ -290,8 +290,8 @@ def test_check_nans_aborts_naming_the_params(tmp_path, monkeypatch):
                       checkpoint_dir=str(tmp_path))
     real = tr.make_banked_train_loop
 
-    def poisoned(cfg):
-        loop = real(cfg)
+    def poisoned(cfg, **kwargs):
+        loop = real(cfg, **kwargs)
 
         def run(state, *args):
             state, aux = loop(state, *args)
@@ -329,12 +329,18 @@ def test_checks_count_and_name_nonfinite_leaves():
     checks.assert_tree_finite({"ok": torch.ones(2)})
 
 
-def test_mesh_other_than_one_device_raises(tmp_path):
-    cfg = dataclasses.replace(tiny_config(checkpoint_dir=str(tmp_path)),
-                              mesh=MeshConfig(data=4, model=1))
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        tr.train(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="multihost"):
+def test_mesh_other_than_one_device_raises(tmp_path, monkeypatch):
+    """Without a process group a mesh of more than one rank raises (it does
+    not train on one device), and so does ``--multihost`` outside
+    torchrun."""
+    for mesh in (MeshConfig(data=4, model=1), MeshConfig(data=-1, model=2)):
+        cfg = dataclasses.replace(tiny_config(checkpoint_dir=str(tmp_path)),
+                                  mesh=mesh)
+        with pytest.raises(ValueError, match="multihost"):
+            tr.train(cfg, device="cpu")
+    for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(k, raising=False)
+    with pytest.raises(RuntimeError, match="torchrun"):
         train_app.main(["--multihost", "--device", "cpu"])
 
 
