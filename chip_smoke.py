@@ -35,7 +35,11 @@ port's two paths at the full width of the ``synthetic_quality`` preset:
   the card over gloo: a data-parallel and a tensor-parallel train step
   against the one-process step, and the render with data=2 and with
   sample_shards=2 against the one-process render. The script starts
-  itself under torchrun (``--worker``) for these ranks.
+  itself under torchrun (``--worker``) for these ranks;
+- the measuring layer (``mipnerf360_torch.tools``): the bench's quality
+  compute, bank and host staging and render in process, whose compute rate
+  must be near phase 6's bare step, the bench's default line in a
+  subprocess, ``profile_step`` and one ``ab_step`` variant.
 
 Each path runs with the kernels' launch counts set to 0 just before it and
 read just after. The card is checked against the CPU on the render (the
@@ -153,6 +157,17 @@ PARALLEL_DP_BATCH, PARALLEL_TP_BATCH = 4096, 512
 PARALLEL_TIMEOUT_S = 600
 PARALLEL_BF16 = dict(rtol=2e-2, atol=2e-2)
 PARALLEL_GRAD_REL_L2 = 5e-2
+
+# Phase 13: the measuring layer (``mipnerf360_torch.tools``). In process,
+# the bench's quality compute, bank staging, host staging and render at
+# TOOLS_STEPS steps per window, TOOLS_WARMUP warm-ups and TOOLS_REPEATS
+# windows, each with the kernels' counts checked; the quality compute rate
+# must lie within TOOLS_RATE_RANGE of phase 6's bare step (a bench that
+# times something else would not). Then the bench's default line in a
+# subprocess, and profile_step and one ab_step variant at 2 steps.
+TOOLS_STEPS, TOOLS_WARMUP, TOOLS_REPEATS = 4, 2, 2
+TOOLS_RATE_RANGE = (0.7, 1.3)
+TOOLS_TIMEOUT_S = 300
 
 # K1 against its plain version: the JAX package's Pallas-vs-core tolerance
 # (tests/test_pallas_ops.py). The two differ only in the order of the
@@ -1733,6 +1748,87 @@ def _multicard(nproc: int, card: str, here: Path) -> int:
     return 0
 
 
+def drive_tools(composite, card: str, here: Path,
+                step_rays_per_s: float) -> dict:
+    """Phase 13: the port's measuring layer through its entry points on the
+    card, each path with the kernels' counts set to 0 just before it and
+    read just after. Returns {path: (K1, K2)}."""
+    from mipnerf360_torch.tools import ab_step, bench, profile_step
+
+    t_start = time.perf_counter()
+    window = ["--steps", str(TOOLS_STEPS), "--warmup", str(TOOLS_WARMUP),
+              "--repeats", str(TOOLS_REPEATS)]
+    calls = max(2, TOOLS_WARMUP) + TOOLS_REPEATS
+    train_want = (2 * calls * TOOLS_STEPS,) * 2
+    paths, rates = {}, {}
+    for name, flags, want in (
+            ("quality_compute", ["--quality"], train_want),
+            ("bank_staging", ["--quality", "--staging"], train_want),
+            ("host_staging", ["--quality", "--staging", "--stage-host"],
+             train_want),
+            # TOOLS_STEPS chunks of --batch rays per render, K1 twice each
+            ("render", ["--mode", "render", "--quality"],
+             (2 * calls * TOOLS_STEPS, 0))):
+        out, got, _ = _drive(f"tools: bench {' '.join(flags)}", composite,
+                             want, lambda: bench.main(window + flags))
+        if out["card"] != card or not np.isfinite(out["value"]):
+            _fail(f"tools: bench {name} gave {out}")
+        paths[f"tools_bench_{name}"] = got
+        rates[name] = out["value"]
+    ratio = rates["quality_compute"] / step_rays_per_s
+    print(f"tools: bench rays/s quality compute {rates['quality_compute']}, "
+          f"bank staging {rates['bank_staging']}, host staging "
+          f"{rates['host_staging']}, render {rates['render']} "
+          f"({TOOLS_STEPS} steps per window, {TOOLS_REPEATS} windows); "
+          f"quality compute {ratio:.3f}x phase 6's bare step "
+          f"{step_rays_per_s:.0f} rays/s (allowed {TOOLS_RATE_RANGE}); on "
+          f"{card}", flush=True)
+    if not TOOLS_RATE_RANGE[0] <= ratio <= TOOLS_RATE_RANGE[1]:
+        _fail(f"tools: the bench's quality compute is {ratio:.3f}x the "
+              "bare step's rays/s")
+
+    cmd = [sys.executable, "-m", "mipnerf360_torch.tools.bench", "--steps",
+           "3", "--warmup", "2", "--repeats", "1"]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, cwd=here, capture_output=True, text=True,
+                         timeout=TOOLS_TIMEOUT_S)
+    if res.returncode != 0:
+        print(res.stdout[-3000:] + res.stderr[-6000:], flush=True)
+        _fail(f"tools: {' '.join(cmd[1:])} exited {res.returncode}")
+    line = json.loads(res.stdout.strip().splitlines()[-1])
+    detail = {"headline", "parity_compute", "quality_compute",
+              "quality_staging", "mfu_matmul_headline", "spread"}
+    print(f"tools: {' '.join(cmd[2:])} in {time.perf_counter() - t0:.1f} s "
+          f"(start-up included): {json.dumps(line)}", flush=True)
+    if (set(line) != {"metric", "value", "unit", "vs_baseline", "card",
+                      "detail"} or set(line["detail"]) != detail
+            or line["metric"] != "train_rays_per_sec_per_chip"
+            or line["card"] != card or not np.isfinite(line["value"])):
+        _fail("tools: the bench's default line lacks its keys or its card")
+
+    # profile_step: prop_forward and nerf_forward launch K1 once per call,
+    # the full step K1 and K2 twice, each piece once warm and then
+    # REPEATS x 2 times; one more prop_forward makes the NeRF's inputs.
+    n = 1 + profile_step.REPEATS * 2
+    prof, got, _ = _drive("tools: profile_step --quality --steps 2",
+                          composite, (4 * n + 1, 2 * n), lambda:
+                          profile_step.main(["--quality", "--steps", "2"]))
+    if not all(np.isfinite(r["device_ms"]) and r["device_ms"] > 0
+               for r in prof["pieces"]):
+        _fail(f"tools: profile_step gave {prof['pieces']}")
+    paths["tools_profile_step"] = got
+    steps = 2 * (1 + max(2, ab_step.WARMUP - 1) + ab_step.REPEATS)
+    ab, got, _ = _drive("tools: ab_step no_distortion --k 2", composite,
+                        (2 * steps, 2 * steps),
+                        lambda: ab_step.main(["no_distortion", "--k", "2"]))
+    if not np.isfinite(ab["ms_per_step"]) or ab["card"] != card:
+        _fail(f"tools: ab_step gave {ab}")
+    paths["tools_ab_step_no_distortion"] = got
+    print(f"tools: phase 13 took {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+    return paths
+
+
 def main() -> int:
     if len(sys.argv) > 2 and sys.argv[1] == "--worker":
         # A rank of phase 12, started by torchrun from drive_parallel.
@@ -1905,6 +2001,8 @@ def main() -> int:
                                     step_rays_per_s))
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    # Phase 13: the measuring layer through its entry points.
+    paths.update(drive_tools(composite, card, here, step_rays_per_s))
     paths = {"render": (k1_render, k2_render), "train": (k1_train, k2_train),
              "trainer": trainer, **paths}
 

@@ -154,6 +154,36 @@ def stage_batch(device, dataset, k: int, batch_size: int, seed: int,
             torch.as_tensor(pix_np, device=device))
 
 
+def upload_bank(dataset, device):
+    """The device bank: every flattened train ray and pixel row of
+    ``dataset`` on ``device`` (whole on every rank of a mesh)."""
+    return (rays_to_device(dataset.rays, device),
+            torch.as_tensor(dataset.pixels, device=device))
+
+
+def stage_chunk(dataset, bank, device, k: int, batch_size: int, seed: int,
+                at_step: int, mesh=None):
+    """The loop args of the ``k``-step chunk starting at ``at_step``: with
+    a ``bank`` (:func:`upload_bank`), the bank and the [K, B] int32 index
+    stack (this rank's [K, B/P] on ``mesh``) for
+    ``make_banked_train_loop``; without, the gathered [K, B, c] batch stack
+    (:func:`stage_batch`) for ``make_train_loop``."""
+    if bank is None:
+        return stage_batch(device, dataset, k, batch_size, seed, at_step,
+                           mesh)
+    idx = (dataset.index_stack(k, batch_size, seed, at_step) if mesh is None
+           else dataset.index_stack_local(k, batch_size, seed, at_step,
+                                          mesh.data_index, mesh.data))
+    return (*bank, torch.as_tensor(idx).to(device))
+
+
+def stage_depth(bank) -> int:
+    """Chunks the :class:`BackgroundStager` holds ahead of the loop. Host
+    mode stages whole [K, B, c] stacks, so 1 (current + one ahead); bank
+    mode ships only [K, B] indices, where a deeper queue is free."""
+    return 2 if bank is not None else 1
+
+
 def chunk_len(at_step: int, max_steps: int, chunk: int) -> int:
     """Steps in the chunk starting at ``at_step``: chunk boundaries align to
     multiples of ``chunk`` regardless of resume point. The single source of
@@ -232,6 +262,17 @@ class BackgroundStager:
         if exc is not None:
             raise exc
         return item
+
+    def warm(self, timeout: float = 300.0) -> None:
+        """Block until the queue is full, the worker has finished, or
+        ``timeout`` seconds have passed. A timing window opened after it
+        sees only the steady state, one assembly per consumed item, and not
+        the cold-start assemblies. A worker error is not raised here: the
+        next get() raises it."""
+        deadline = time.monotonic() + timeout
+        while (self._q.qsize() < self._q.maxsize and self._thread.is_alive()
+               and time.monotonic() < deadline):
+            time.sleep(0.005)
 
     def close(self):
         self._stop.set()
@@ -347,9 +388,7 @@ def train(cfg: Config, *, max_steps: Optional[int] = None,
 
     bank = None
     if use_device_bank(cfg, dataset):
-        # replicated: on a mesh every rank holds the whole bank
-        bank = (rays_to_device(dataset.rays, device),
-                torch.as_tensor(dataset.pixels, device=device))
+        bank = upload_bank(dataset, device)
         loop_fn = make_banked_train_loop(cfg, mesh=mesh)
     else:
         loop_fn = make_train_loop(cfg, mesh=mesh)
@@ -374,17 +413,10 @@ def train(cfg: Config, *, max_steps: Optional[int] = None,
         return bool(every) and (end // every) > (start // every)
 
     def stage(at_step: int):
-        """Stage the next chunk's loop_fn args: the [K, B] int32 index stack
-        in device-bank mode, the gathered [K, B, c] batch stack in host
-        mode."""
+        """(k, loop_fn args) of the chunk starting at ``at_step``."""
         k = chunk_len(at_step, max_steps, chunk)
-        B, seed = cfg.train.batch_size, cfg.train.seed
-        if bank is not None:
-            idx = (dataset.index_stack(k, B, seed, at_step) if mesh is None
-                   else dataset.index_stack_local(k, B, seed, at_step,
-                                                  mesh.data_index, mesh.data))
-            return k, (*bank, torch.as_tensor(idx).to(device))
-        return k, stage_batch(device, dataset, k, B, seed, at_step, mesh)
+        return k, stage_chunk(dataset, bank, device, k, cfg.train.batch_size,
+                              cfg.train.seed, at_step, mesh)
 
     step = start_step
     # Best-eval tracking persists across --resume via the manifest, so a
@@ -399,11 +431,8 @@ def train(cfg: Config, *, max_steps: Optional[int] = None,
     stager = None
     staged = None
     if cfg.train.async_staging:
-        # Host mode stages whole [K, B, c] stacks, so depth 1 (current + one
-        # ahead); bank mode ships only [K, B] indices, where a deeper queue
-        # is free.
         stager = BackgroundStager(stage, chunk_starts(step, max_steps, chunk),
-                                  depth=2 if bank is not None else 1)
+                                  depth=stage_depth(bank))
     else:
         staged = stage(step) if step < max_steps else None
     try:

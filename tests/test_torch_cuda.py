@@ -284,3 +284,21 @@ def test_video_app_on_card(cuda, tmp_path):
             a = read_png(f"{frames['cuda']}/{i:04d}.png").astype(int)
             b = read_png(f"{frames['cpu']}/{i:04d}.png").astype(int)
             assert np.abs(a - b).max() <= 1
+
+
+def test_bench_on_card(cuda):
+    """tools.bench on the card: the line names the card (nvidia-smi's name
+    and power limit), the compute-only loop launches K1 and K2 twice per
+    step, and ``--pallas off`` raises (the card has no plain composite)."""
+    from mipnerf360_torch.tools import bench
+
+    base = Config(model=SMALL)
+    flags = ["--batch", "64", "--steps", "2", "--warmup", "2", "--repeats",
+             "1", "--quality"]
+    k1, k2 = composite.launches, composite.bwd_launches
+    out = bench.run(bench.parse_args(flags), base)
+    assert (composite.launches - k1, composite.bwd_launches - k2) == (12, 12)
+    assert out["card"] not in ("", "cpu") and "W" in out["card"]
+    assert np.isfinite(out["value"]) and out["value"] > 0
+    with pytest.raises(ValueError, match="use_pallas='off'"):
+        bench.run(bench.parse_args(flags + ["--pallas", "off"]), base)
