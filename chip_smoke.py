@@ -39,7 +39,13 @@ port's two paths at the full width of the ``synthetic_quality`` preset:
 - the measuring layer (``mipnerf360_torch.tools``): the bench's quality
   compute, bank and host staging and render in process, whose compute rate
   must be near phase 6's bare step, the bench's default line in a
-  subprocess, ``profile_step`` and one ``ab_step`` variant.
+  subprocess, ``profile_step`` and one ``ab_step`` variant;
+- the quality layer (``mipnerf360_torch.tools.parity_psnr``) on the
+  exported 64x64 sphere scene: ``convergence`` for 300 steps, which must
+  come within 2 dB of the JAX package's recorded run at step 300, then
+  ``quality-equal-batch`` and ``ablate``'s ``both`` variant with its probe
+  on the reference cadence (2 proposal updates and 1 NeRF update per
+  step); each run's held-out PSNR must beat its model's random-init render.
 
 Each path runs with the kernels' launch counts set to 0 just before it and
 read just after. The card is checked against the CPU on the render (the
@@ -168,6 +174,24 @@ PARALLEL_GRAD_REL_L2 = 5e-2
 TOOLS_STEPS, TOOLS_WARMUP, TOOLS_REPEATS = 4, 2, 2
 TOOLS_RATE_RANGE = (0.7, 1.3)
 TOOLS_TIMEOUT_S = 300
+
+# Phase 14: the quality layer (``mipnerf360_torch.tools.parity_psnr``)
+# through its ``run`` on the exported 64x64 scene (28 train, 4 held-out
+# views): ``convergence`` (quality model, joint cadence, 4096 rays) for
+# QUALITY_CONV_STEPS steps with an image eval every QUALITY_EVAL_EVERY and
+# the LR horizon of the recorded 10,000-step run (so its first steps follow
+# the record's schedule); ``quality-equal-batch`` (reference cadence, batch
+# 64) for QUALITY_QEB_STEPS; ``ablate``'s ``both`` variant for
+# QUALITY_ABLATE_STEPS, with its probe. Each run's image PSNR must beat the
+# random-init render of its model on the same views, and convergence's at
+# its last step must lie at most QUALITY_MARGIN_DB under the JAX package's
+# record at that step (PARITY_PSNR.json, a TPU v5e run: 26.62 dB at 300).
+# The reference cadence launches K1 twice and K2 once per update: 6 and 3
+# per step at prop_inner_steps = 2.
+QUALITY_CONV_STEPS, QUALITY_EVAL_EVERY, QUALITY_LR_STEPS = 300, 50, 10_000
+QUALITY_QEB_STEPS, QUALITY_ABLATE_STEPS = 100, 20
+QUALITY_RES = 64
+QUALITY_MARGIN_DB = 2.0
 
 # K1 against its plain version: the JAX package's Pallas-vs-core tolerance
 # (tests/test_pallas_ops.py). The two differ only in the order of the
@@ -1829,6 +1853,138 @@ def drive_tools(composite, card: str, here: Path,
     return paths
 
 
+def _quality_launches(steps: int, per_step, every: dict, image_evals: int,
+                      chunks: int, extra_k1: int = 0):
+    """K1 and K2 launches of a parity_psnr run: ``per_step`` (K1, K2) per
+    train step; two K1 per forward of each eval_every batch and of each of
+    the ``chunks`` render chunks of the held-out views at each image eval
+    (the trainer's and ``image_evals`` more); ``extra_k1`` for the probe."""
+    k1 = (per_step[0] * steps + 2 * (steps // every["eval_every"])
+          + 2 * chunks * (steps // every["eval_image_every"] + image_evals)
+          + extra_k1)
+    return k1, per_step[1] * steps
+
+
+def _finite(tree) -> bool:
+    if isinstance(tree, dict):
+        return all(_finite(v) for v in tree.values())
+    if isinstance(tree, (int, float)) and not isinstance(tree, bool):
+        return bool(np.isfinite(tree))
+    return True
+
+
+def drive_quality(composite, card: str, here: Path) -> dict:
+    """Phase 14: the quality layer through ``parity_psnr.run`` on the card,
+    each run with the kernels' counts set to 0 just before it and read just
+    after. Returns {path: (K1, K2)}."""
+    from mipnerf360_torch.data import get_dataset
+    from mipnerf360_torch.tools import parity_psnr as pp
+    from mipnerf360_torch.train import init_train_state
+    from mipnerf360_torch.train.trainer import evaluate_images
+
+    t_start = time.perf_counter()
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_quality_",
+                                 dir=here / "build"))
+    paths = {}
+    try:
+        scene = str(work / "scene")
+        pp.export_blender_scene(scene, QUALITY_RES)
+        base = pp._ours_cfg(scene, 1, "")
+        test = get_dataset(base.data, "test", white_bkgd=True)
+        chunks = test.n_images * -(-test.h * test.w
+                                   // base.train.eval_image_chunk)
+        init = {}
+        for name, quality in (("quality", True), ("parity", False)):
+            cfg = pp._ours_cfg(scene, 1, "", quality=quality)
+            state = init_train_state(cfg.model, cfg.train, device="cuda")
+            init[name] = evaluate_images(cfg, state.params, test,
+                                         device="cuda")["eval/psnr_image"]
+        print(f"quality: exported scene {QUALITY_RES}x{QUALITY_RES}, "
+              f"{test.n_images} held-out views; random-init image PSNR "
+              f"{init['quality']:.3f} dB (quality model), "
+              f"{init['parity']:.3f} dB (parity model)", flush=True)
+
+        def run(mode, steps, base_train=None):
+            return pp.run(pp.parse_args([
+                "--mode", mode, "--steps", str(steps), "--res",
+                str(QUALITY_RES), "--scene-dir", scene, "--workdir",
+                str(work / mode)]), base_train=base_train)
+
+        def check(name, section, image_psnr, init_psnr):
+            if section["card"] != card or not _finite(section):
+                _fail(f"quality: {name} gave non-finite values or another "
+                      f"card: {json.dumps(section)[:2000]}")
+            if not image_psnr or not max(image_psnr.values()) > init_psnr:
+                _fail(f"quality: {name}'s image PSNR {image_psnr} does not "
+                      f"beat the random-init render's {init_psnr:.3f} dB")
+
+        every = {"eval_every": 10, "eval_image_every": QUALITY_EVAL_EVERY}
+        steps = QUALITY_CONV_STEPS
+        conv, got, _ = _drive(
+            f"quality: convergence {steps} steps", composite,
+            _quality_launches(steps, (2, 2), every, 2, chunks),
+            lambda: run("convergence", steps, base_train={
+                "eval_image_every": QUALITY_EVAL_EVERY,
+                "lr_max_steps": QUALITY_LR_STEPS}))
+        paths["quality_convergence"] = got
+        imgs = conv["ours"]["image_psnr"]
+        check("convergence", conv, imgs, init["quality"])
+        with open(here / "PARITY_PSNR.json") as f:
+            recorded = json.load(f)["convergence"]["ours"]["image_psnr"]
+        want = recorded[str(steps)]
+        print(f"quality: convergence image PSNR by step "
+              f"{ {s: round(v, 3) for s, v in sorted(imgs.items())} }; at "
+              f"step {steps} {imgs[steps]:.3f} dB against the JAX record's "
+              f"{want:.3f} dB (TPU v5e): {imgs[steps] - want:+.3f} dB "
+              f"(allowed -{QUALITY_MARGIN_DB}); best checkpoint "
+              f"{conv['summary']['best_checkpoint']['eval/psnr_image']:.3f}"
+              f" dB at step {conv['summary']['best_checkpoint']['step']}; "
+              f"on {card}", flush=True)
+        if not imgs[steps] >= want - QUALITY_MARGIN_DB:
+            _fail(f"quality: convergence at step {steps} is more than "
+                  f"{QUALITY_MARGIN_DB} dB under the JAX record")
+
+        steps = QUALITY_QEB_STEPS
+        every = {"eval_every": 10, "eval_image_every": max(10, steps // 4)}
+        qeb, got, _ = _drive(
+            f"quality: quality-equal-batch {steps} steps", composite,
+            _quality_launches(steps, (6, 3), every, 0, chunks),
+            lambda: run("quality-equal-batch", steps))
+        paths["quality_equal_batch"] = got
+        qeb_imgs = pp.parse_ours_metrics(
+            str(work / "quality-equal-batch" / "ours_ckpt_qeb"))["image_psnr"]
+        check("quality-equal-batch", qeb, qeb_imgs, init["quality"])
+
+        steps = QUALITY_ABLATE_STEPS
+        every = {"eval_every": 10, "eval_image_every": max(10, steps // 4)}
+        variants = pp.ABLATE_VARIANTS
+        pp.ABLATE_VARIANTS = {"both": variants["both"]}
+        try:
+            abl, got, _ = _drive(
+                f"quality: ablate both {steps} steps", composite,
+                # the probe: 8 batches, each rendered randomized and not
+                _quality_launches(steps, (6, 3), every, 0, chunks,
+                                  extra_k1=8 * 2 * 2),
+                lambda: run("ablate", steps))
+        finally:
+            pp.ABLATE_VARIANTS = variants
+        paths["quality_ablate_both"] = got
+        both = abl["variants"]["both"]
+        check("ablate both", abl, {steps: both["final_image_psnr"]},
+              init["parity"])
+        gap = abs(both["probe"]["train_psnr_randomized"]
+                  - both["probe"]["train_psnr_deterministic"])
+        print(f"quality: quality-equal-batch image PSNR "
+              f"{ {s: round(v, 3) for s, v in sorted(qeb_imgs.items())} }, "
+              f"ours >= reference at {qeb['ours_ge_ref_frac']} of the shared "
+              f"steps; ablate both {both}, probe gap {gap:.3f} dB; phase 14 "
+              f"took {time.perf_counter() - t_start:.1f} s on {card}",
+              flush=True)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return paths
+
+
 def main() -> int:
     if len(sys.argv) > 2 and sys.argv[1] == "--worker":
         # A rank of phase 12, started by torchrun from drive_parallel.
@@ -2003,6 +2159,8 @@ def main() -> int:
         shutil.rmtree(work, ignore_errors=True)
     # Phase 13: the measuring layer through its entry points.
     paths.update(drive_tools(composite, card, here, step_rays_per_s))
+    # Phase 14: the quality layer through its entry point.
+    paths.update(drive_quality(composite, card, here))
     paths = {"render": (k1_render, k2_render), "train": (k1_train, k2_train),
              "trainer": trainer, **paths}
 

@@ -9,4 +9,7 @@ power limit) beside every rate it prints.
 - ``profile_step``: the train step split into timed pieces.
 - ``ab_step``: the step with one piece stubbed out, timed again.
 - ``sample_axis_bench``: render rays/s against samples per ray.
+- ``parity_psnr``: the quality record, PSNR at equal iterations against
+  the recorded reference run and convergence at the flagship operating
+  point (its sections name the card but hold no rate).
 """

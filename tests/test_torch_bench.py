@@ -378,19 +378,36 @@ def test_sample_axis_chunk_rule():
 
 
 def test_sample_axis_rows_and_out(tmp_path, monkeypatch):
+    """The rows from fixed window times: each rate is rounded to 0.1 on its
+    own, as the JAX tool rounds them (tools/sample_axis_bench.py:87-88), so
+    they are held to that rounding exactly (the product of the rounded
+    rays/s and N differs from the rounded samples/s by up to 0.05 (N + 1))."""
     monkeypatch.chdir(tmp_path)
+    durations = [0.7, 0.3, 0.9]       # seconds per window; the median is 0.7
+    windows = []
+
+    def fixed_windows(call, warmup, repeats):
+        call()
+        windows.append((warmup, repeats))
+        return durations
+
+    monkeypatch.setattr(sab, "time_windows", fixed_windows)
     root = REPO / "SAMPLE_AXIS_BENCH.json"
     before = root.read_bytes()
     rows = sab.run(sab.parse_args(["--device", "cpu", "--samples", "8", "16",
                                    "--chunk", "16"]), TINY_MODEL)
     assert list(tmp_path.iterdir()) == [] and root.read_bytes() == before
+    assert windows == [(sab.WARMUP, sab.REPEATS)] * 2
     assert [(r["num_samples"], r["chunk"]) for r in rows] == [(8, 256),
                                                              (16, 256)]
     for r in rows:
         assert set(r) == {"num_samples", "chunk", "render_rays_per_sec",
                           "samples_per_sec", "card"}
-        assert r["samples_per_sec"] == pytest.approx(
-            r["render_rays_per_sec"] * r["num_samples"], rel=1e-6)
+        n_rays = 4 * r["chunk"]
+        assert r["render_rays_per_sec"] == round(n_rays / 0.7, 1)
+        assert r["samples_per_sec"] == round(n_rays / 0.7 * r["num_samples"],
+                                             1)
+        assert r["card"] == "cpu"
     out = tmp_path / "rows.json"
     rows = sab.run(sab.parse_args(["--device", "cpu", "--samples", "8",
                                    "--chunk", "16", "--out", str(out)]),

@@ -302,3 +302,24 @@ def test_bench_on_card(cuda):
     assert np.isfinite(out["value"]) and out["value"] > 0
     with pytest.raises(ValueError, match="use_pallas='off'"):
         bench.run(bench.parse_args(flags + ["--pallas", "off"]), base)
+
+
+def test_parity_psnr_reference_cadence_on_card(cuda):
+    """tools.parity_psnr on the card: quality-equal-batch's reference
+    cadence launches K1 6 times and K2 3 times per step (two K1 per update,
+    one K2 through the one level each update trains), two K1 per batch eval
+    and per render chunk of each of the 4 held-out views; its section names
+    the card."""
+    from mipnerf360_torch.tools import parity_psnr as pp
+
+    small = {k: getattr(SMALL, k) for k in (
+        "num_samples", "hidden_proposal", "hidden_nerf", "nerf_depth",
+        "compute_dtype")}
+    args = pp.parse_args(["--mode", "quality-equal-batch", "--steps", "10",
+                          "--res", "8"])
+    k1, k2 = composite.launches, composite.bwd_launches
+    section = pp.run(args, small)
+    assert (composite.launches - k1, composite.bwd_launches - k2) == (
+        6 * 10 + 2 + 2 * 4, 3 * 10)
+    assert section["card"] not in ("", "cpu") and "W" in section["card"]
+    assert section["wall_s"] > 0

@@ -1,6 +1,7 @@
-"""The port stands alone: no JAX and nothing of ``mipnerf360_tpu`` at import
-time, the card unless the caller asks for the CPU, and no silent fallback
-when the card or the CUDA toolkit is missing.
+"""The port stands alone: no JAX and nothing of ``mipnerf360_tpu`` or of the
+JAX package's ``tools/`` at import time, the card unless the caller asks for
+the CPU, and no silent fallback when the card or the CUDA toolkit is
+missing.
 
 This file imports no JAX, so it also runs on a machine with a card and
 without JAX (``--noconftest``: tests/conftest.py imports JAX), as the README
@@ -44,13 +45,14 @@ def test_port_and_chip_smoke_import_no_jax():
         for name in names:
             importlib.import_module(name)
         import chip_smoke
-        bad = sorted(m for m in sys.modules
-                     if m.split(".")[0] in ("jax", "jaxlib", "mipnerf360_tpu"))
-        parallel = {"mipnerf360_torch.parallel.mesh",
+        bad = sorted(m for m in sys.modules if m.split(".")[0] in
+                     ("jax", "jaxlib", "mipnerf360_tpu", "tools"))
+        required = {"mipnerf360_torch.parallel.mesh",
                     "mipnerf360_torch.parallel.collectives",
-                    "mipnerf360_torch.parallel.sample_axis"}
-        print(len(names), bad, sorted(parallel - set(names)))
-        sys.exit(1 if bad or len(names) < 20 or parallel - set(names) else 0)
+                    "mipnerf360_torch.parallel.sample_axis",
+                    "mipnerf360_torch.tools.parity_psnr"}
+        print(len(names), bad, sorted(required - set(names)))
+        sys.exit(1 if bad or len(names) < 20 or required - set(names) else 0)
     """)
     res = _run(["-c", code], cwd=REPO)
     assert res.returncode == 0, res.stdout + res.stderr
