@@ -45,7 +45,12 @@ port's two paths at the full width of the ``synthetic_quality`` preset:
   come within 2 dB of the JAX package's recorded run at step 300, then
   ``quality-equal-batch`` and ``ablate``'s ``both`` variant with its probe
   on the reference cadence (2 proposal updates and 1 NeRF update per
-  step); each run's held-out PSNR must beat its model's random-init render.
+  step); each run's held-out PSNR must beat its model's random-init render;
+- the spike regime of the proposal-distillation loss: K1 and K2 against
+  their plain versions on the committed rays of ``convergence``'s spike
+  (``tests/data/convergence_spike_seed0.npz``) and on synthetic rays of the
+  same regime, then the distillation part of the step on those rays, card
+  against CPU.
 
 Each path runs with the kernels' launch counts set to 0 just before it and
 read just after. The card is checked against the CPU on the render (the
@@ -192,6 +197,26 @@ QUALITY_CONV_STEPS, QUALITY_EVAL_EVERY, QUALITY_LR_STEPS = 300, 50, 10_000
 QUALITY_QEB_STEPS, QUALITY_ABLATE_STEPS = 100, 20
 QUALITY_RES = 64
 QUALITY_MARGIN_DB = 2.0
+
+# Phase 15: the spike regime of the proposal-distillation loss. The
+# committed fixture holds the 64 rays of the largest hinge at steps 2,144
+# and 2,145 of ``convergence`` seed 0 on the card (proposal weights down to
+# 5e-23 under NeRF bounds near 1). K1 and K2 are held to their plain
+# versions on its two levels, under the hinge's cotangent, and on
+# SPIKE_SYNTH_RAYS synthetic rays of the same regime: density 0 or
+# log-uniform from 1e-6 to 1e4 (transmittance underflows to 0, weights
+# down to 0), cotangents 0 or of either sign, log-uniform from 1 to 1e12.
+# K1 at its tolerance (the weights are at most 1); K2 within SPIKE_ROW_RTOL
+# of each ray's largest |d_density| (entries span 20 orders of magnitude,
+# so an absolute or entrywise tolerance says nothing there). Then the
+# distillation part of the step on the fixture's rays, density -> K1 ->
+# hinge -> K2 -> d_density, on the card against the CPU's plain path: the
+# loss at SPIKE_LOSS_RTOL, d_density within SPIKE_ROW_RTOL of each ray's
+# largest.
+SPIKE_FIXTURE = Path("tests") / "data" / "convergence_spike_seed0.npz"
+SPIKE_SYNTH_RAYS = 4096
+SPIKE_ROW_RTOL = 1e-4
+SPIKE_LOSS_RTOL = 1e-5
 
 # K1 against its plain version: the JAX package's Pallas-vs-core tolerance
 # (tests/test_pallas_ops.py). The two differ only in the order of the
@@ -1985,6 +2010,116 @@ def drive_quality(composite, card: str, here: Path) -> dict:
     return paths
 
 
+def _row_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """Largest |got - want| over each row's largest |want|, in float64."""
+    got, want = got.double().cpu(), want.double().cpu()
+    scale = want.abs().amax(-1, keepdim=True)
+    return float(((got - want).abs() / torch.where(scale > 0, scale, 1.0))
+                 .max())
+
+
+def _spike_synthetic(b: int, n: int, seed: int):
+    """Inputs of the spike's regime: density 0 (a tenth) or log-uniform in
+    [1e-6, 1e4]; cotangent 0 (a tenth) or +-10^U(0, 12)."""
+    rng = np.random.default_rng(seed)
+    density = np.where(rng.uniform(size=(b, n)) < 0.1, 0.0,
+                       10.0 ** rng.uniform(-6, 4, (b, n))).astype(np.float32)
+    t_vals = np.sort(rng.uniform(2.0, 6.0, (b, n + 1)), -1).astype(np.float32)
+    dirs = rng.normal(size=(b, 3)).astype(np.float32)
+    g = np.where(rng.uniform(size=(b, n)) < 0.1, 0.0,
+                 rng.choice([-1.0, 1.0], (b, n))
+                 * 10.0 ** rng.uniform(0, 12, (b, n))).astype(np.float32)
+    return [_on_card(x) for x in (density, t_vals, dirs, g)]
+
+
+def drive_spike(composite, card: str, here: Path) -> dict:
+    """Phase 15: K1 and K2 in the spike regime of the proposal-distillation
+    loss, and the distillation part of the step on the card's spike rays,
+    card against CPU. Returns {path: (K1, K2)}."""
+    from mipnerf360_torch.losses.distillation import distillation_loss
+
+    t_start = time.perf_counter()
+    z = np.load(here / SPIKE_FIXTURE)
+    steps = [int(s) for s in z["steps"]]
+    fx = [{k: torch.from_numpy(np.ascontiguousarray(z[k][i])) for k in z.files
+           if k != "steps"} for i in range(len(steps))]
+
+    def hinge_cotangent(f):
+        w = f["w_prop"].clone().requires_grad_()
+        loss = distillation_loss(f["t_nerf"], f["w_nerf"], f["t_prop"], w)
+        return torch.autograd.grad(loss, w)[0]
+
+    cases = []
+    for step, f in zip(steps, fx):
+        g = hinge_cotangent(f)
+        for level in ("prop", "nerf"):
+            cases.append((f"step {step} {level}",
+                          [f[f"density_{level}"].cuda(),
+                           f[f"t_{level}"].cuda(), f["dirs"].cuda(),
+                           g.cuda()]))
+    cases.append((f"synthetic B={SPIKE_SYNTH_RAYS} N=64",
+                  _spike_synthetic(SPIKE_SYNTH_RAYS, 64, 15)))
+    for label, (density, t_vals, dirs, g) in cases:
+        w = composite._launch(density, t_vals, dirs)
+        w_ref = composite.plain_composite_weights(density, t_vals, dirs)
+        dd = composite._launch_bwd(density, t_vals, dirs, g)
+        dd_ref = composite.plain_composite_weights_bwd(density, t_vals,
+                                                       dirs, g)
+        torch.cuda.synchronize()
+        k1_err = (w - w_ref).abs().max().item()
+        k2_err = _row_err(dd, dd_ref)
+        k1_ok = (torch.isfinite(w).all().item()
+                 and torch.allclose(w, w_ref, rtol=K1_RTOL, atol=K1_ATOL))
+        k2_ok = torch.isfinite(dd).all().item() and k2_err <= SPIKE_ROW_RTOL
+        print(f"spike: K1 vs plain [{label}] max_abs_err={k1_err:.3e} "
+              f"(rtol {K1_RTOL}, atol {K1_ATOL}) {'ok' if k1_ok else 'MISMATCH'};"
+              f" K2 vs plain: {k2_err:.3e} of the ray's largest |d_density| "
+              f"(<= {SPIKE_ROW_RTOL}; |g| up to "
+              f"{g.abs().max().item():.2e}, |d_density| up to "
+              f"{dd_ref.abs().max().item():.2e}) "
+              f"{'ok' if k2_ok else 'MISMATCH'}", flush=True)
+        if not k1_ok:
+            _fail(f"spike: K1 disagrees with its plain version ({label})")
+        if not k2_ok:
+            _fail(f"spike: K2 disagrees with its plain version ({label})")
+
+    def distill(device):
+        """Each fixture step's loss and d_density through the composite
+        (K1 and K2 on the card, the plain path on the CPU)."""
+        out = []
+        for f in fx:
+            density = f["density_prop"].to(device).requires_grad_()
+            w = composite.composite_weights(density, f["t_prop"].to(device),
+                                            f["dirs"].to(device))
+            loss = distillation_loss(f["t_nerf"].to(device),
+                                     f["w_nerf"].to(device),
+                                     f["t_prop"].to(device), w)
+            out.append((loss.detach(),
+                        torch.autograd.grad(loss, density)[0]))
+        return out
+
+    card_out, got, _ = _drive("spike: distillation on the fixture's rays",
+                              composite, (len(fx), len(fx)),
+                              lambda: distill("cuda"))
+    for step, (loss, grad), (ref_loss, ref_grad) in zip(
+            steps, card_out, distill("cpu")):
+        rel = abs(loss.item() - ref_loss.item()) / abs(ref_loss.item())
+        err = _row_err(grad, ref_grad)
+        ok = (torch.isfinite(grad).all().item() and rel <= SPIKE_LOSS_RTOL
+              and err <= SPIKE_ROW_RTOL)
+        print(f"spike: step {step} loss_prop on the fixture's 64 rays "
+              f"{loss.item():.6g} on the card, {ref_loss.item():.6g} on the "
+              f"CPU (rel {rel:.2e}, <= {SPIKE_LOSS_RTOL}); d_density "
+              f"{err:.3e} of the ray's largest (<= {SPIKE_ROW_RTOL}) "
+              f"{'ok' if ok else 'MISMATCH'}", flush=True)
+        if not ok:
+            _fail(f"spike: the card's distillation at step {step} disagrees "
+                  "with the CPU's")
+    print(f"spike: phase 15 took {time.perf_counter() - t_start:.1f} s on "
+          f"{card}", flush=True)
+    return {"spike": got}
+
+
 def main() -> int:
     if len(sys.argv) > 2 and sys.argv[1] == "--worker":
         # A rank of phase 12, started by torchrun from drive_parallel.
@@ -2161,6 +2296,8 @@ def main() -> int:
     paths.update(drive_tools(composite, card, here, step_rays_per_s))
     # Phase 14: the quality layer through its entry point.
     paths.update(drive_quality(composite, card, here))
+    # Phase 15: the spike regime of the distillation loss.
+    paths.update(drive_spike(composite, card, here))
     paths = {"render": (k1_render, k2_render), "train": (k1_train, k2_train),
              "trainer": trainer, **paths}
 

@@ -82,6 +82,28 @@ def train_state_from_jax(tree, *, device="cuda",
     return state
 
 
+def train_state_to_numpy_tree(state: TrainState) -> "JaxTrainState":
+    """The port's :class:`TrainState` -> the tree of NumPy arrays that
+    ``jax.tree.map(np.asarray, state)`` gives for the JAX package's
+    ``TrainState`` (the inverse of :func:`train_state_from_jax`): int32
+    ``step`` and ``sched_count``, float32 params, and each subtree's optax
+    chain state ``(ScaleByAdamState(count, mu, nu), EmptyState())``.
+
+    ``key`` is None: a torch generator has no ``jax.random`` key, so the
+    caller that builds the JAX state supplies one."""
+    def chain(a: AdamState) -> tuple:
+        return (ScaleByAdamState(count=np.asarray(a.count, np.int32),
+                                 mu=params_to_numpy(a.mu),
+                                 nu=params_to_numpy(a.nu)), EmptyState())
+
+    return JaxTrainState(step=np.asarray(state.step, np.int32),
+                         sched_count=np.asarray(state.sched_count, np.int32),
+                         params=params_to_numpy(state.params),
+                         opt_state={k: chain(a)
+                                    for k, a in state.opt_state.items()},
+                         key=None)
+
+
 # --- the JAX package's checkpoints (flax msgpack) ---------------------------
 
 class JaxTrainState(NamedTuple):

@@ -18,6 +18,7 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
+import optax
 import pytest
 import torch
 
@@ -30,6 +31,7 @@ from mipnerf360_tpu.core.rays import rays_map as jax_rays_map
 from mipnerf360_tpu.losses import distillation as jdist
 from mipnerf360_tpu.train import step as jstep
 from mipnerf360_tpu.train.schedule import log_lerp_lr as jax_lr
+from mipnerf360_tpu.train.state import TrainState as JTrainState
 from mipnerf360_tpu.train.state import init_train_state as jax_init_state
 from mipnerf360_torch import interop
 from mipnerf360_torch import losses as tl
@@ -366,6 +368,39 @@ def test_train_state_carried_over_from_jax_continues_alike():
     np.testing.assert_allclose(aux["loss"].item(), float(jaux["loss"]),
                                **STEP_TOL)
     _assert_trees_close(leaves(state.params), jstate.params, PARAM_TOL, "param")
+
+
+def _jax_state_from_numpy(tree, key):
+    """The JAX ``TrainState`` of a :func:`interop.train_state_to_numpy_tree`
+    result (the key, which the port does not carry, from the caller)."""
+    arr = functools.partial(jax.tree.map, jnp.asarray)
+    opt = {k: (optax.ScaleByAdamState(count=jnp.asarray(a.count),
+                                      mu=arr(a.mu), nu=arr(a.nu)),
+               optax.EmptyState())
+           for k, (a, _) in tree.opt_state.items()}
+    return JTrainState(step=jnp.asarray(tree.step),
+                       sched_count=jnp.asarray(tree.sched_count),
+                       params=arr(tree.params), opt_state=opt, key=key)
+
+
+def test_train_state_round_trip_through_the_port_is_bit_identical():
+    jcfg, _ = _configs("joint")
+    jstate = _jax_state(jcfg, seed=4)
+    for i in range(2):     # moments and counts away from their init
+        rays, pixels = _batch(20 + i)
+        jstate, _ = _jax_step(jcfg)(jstate, jax_rays_map(jnp.asarray, rays),
+                                    jnp.asarray(pixels))
+    tree = interop.train_state_to_numpy_tree(_port_state(jstate))
+    assert tree.key is None
+    back = _jax_state_from_numpy(tree, jstate.key)
+    assert (jax.tree.structure(back) == jax.tree.structure(jstate))
+    for path, (g, w) in zip(
+            jax.tree.leaves(jax.tree_util.tree_map_with_path(
+                lambda p, _: jax.tree_util.keystr(p), jstate)),
+            zip(jax.tree.leaves(back), jax.tree.leaves(jstate))):
+        assert np.asarray(g).dtype == np.asarray(w).dtype, path
+        np.testing.assert_array_equal(np.asarray(g), np.asarray(w),
+                                      err_msg=path)
 
 
 def test_remat_gives_the_same_gradients():
