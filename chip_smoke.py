@@ -50,7 +50,14 @@ port's two paths at the full width of the ``synthetic_quality`` preset:
   their plain versions on the committed rays of ``convergence``'s spike
   (``tests/data/convergence_spike_seed0.npz``) and on synthetic rays of the
   same regime, then the distillation part of the step on those rays, card
-  against CPU.
+  against CPU;
+- the demo scripts and the scaling harness as a user runs them:
+  ``mipnerf360_torch/demo/demo_synthetic.sh`` under bash (train, eval
+  ``--step best``, video), whose eval must beat the random-init PSNR, and
+  ``python -m mipnerf360_torch.tools.scaling --device cuda --ranks 1,2``,
+  whose world-2 losses must agree with world 1's at a float32 tolerance
+  and whose loss must fall from the first call to the last. Each of their
+  processes reports its own launch counts.
 
 Each path runs with the kernels' launch counts set to 0 just before it and
 read just after. The card is checked against the CPU on the render (the
@@ -217,6 +224,31 @@ SPIKE_FIXTURE = Path("tests") / "data" / "convergence_spike_seed0.npz"
 SPIKE_SYNTH_RAYS = 4096
 SPIKE_ROW_RTOL = 1e-4
 SPIKE_LOSS_RTOL = 1e-5
+
+# Phase 16: the demo scripts and the scaling harness through the commands a
+# user types. ``mipnerf360_torch/demo/demo_synthetic.sh`` runs under bash
+# with STEPS=DEMO_STEPS and an image eval at the last step (so that
+# ``--step best`` has a checkpoint); its video renders the preset's 28
+# orbit poses at 64x64. The ``python`` on the script's PATH is a shim that
+# runs each ``python -m`` module in a process of this script
+# (``--worker 16``), which writes the module's K1 and K2 launches. The
+# eval's PSNR must beat phase 4's random-init render on the same 7 views.
+# Then ``tools.scaling --device cuda`` with SCALING_ARGS (world 1 over NCCL,
+# world 2 as gloo ranks sharing the card), whose rows carry rank 0's
+# launches. The worker runs in float32: world 2's losses of the first and
+# of the last call must lie within SCALING_LOSS_TOL of world 1's (the
+# largest gap measured on the H100 was 2.8e-5 relative, over 140 steps of
+# the tool's defaults, SCALING_TORCH.json; one step moves the loss by
+# ~1e-3 relative or more, so a world 2 that drops its gradient all-reduce
+# or never updates fails), and each world's last call must reach a lower
+# mean loss than its first. Each command stops at DEMO_TIMEOUT_S.
+DEMO_STEPS = 20
+DEMO_SETS = [f"train.eval_image_every={DEMO_STEPS}"]
+SCALING_STEPS, SCALING_REPS = 2, 1
+SCALING_ARGS = ["--ranks", "1,2", "--steps", str(SCALING_STEPS), "--reps",
+                str(SCALING_REPS)]
+DEMO_TIMEOUT_S = 600
+SCALING_LOSS_TOL = dict(rtol=1e-4, atol=0.0)
 
 # K1 against its plain version: the JAX package's Pallas-vs-core tolerance
 # (tests/test_pallas_ops.py). The two differ only in the order of the
@@ -2120,12 +2152,180 @@ def drive_spike(composite, card: str, here: Path) -> dict:
     return {"spike": got}
 
 
+def _worker_16(counts: Path, argv: list) -> None:
+    """Phase 16's ``python`` shim: ``-m MODULE ARGS`` runs MODULE as
+    ``__main__`` in this process, then appends its K1 and K2 launches to
+    ``counts`` (one JSON line per module)."""
+    import runpy
+
+    from mipnerf360_torch.ops import composite
+
+    if len(argv) < 2 or argv[0] != "-m":
+        raise SystemExit(f"phase 16's python shim runs `-m MODULE ...`, "
+                         f"got {argv}")
+    sys.argv = [argv[1], *argv[2:]]
+    composite.launches = composite.bwd_launches = 0
+    runpy.run_module(argv[1], run_name="__main__", alter_sys=True)
+    if torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+    with open(counts, "a") as f:
+        f.write(json.dumps({"module": argv[1], "k1": composite.launches,
+                            "k2": composite.bwd_launches}) + "\n")
+
+
+def _run_logged(cmd: list, here: Path, log: Path, env=None) -> float:
+    """``cmd`` in its own session with its output to ``log``, stopped at
+    DEMO_TIMEOUT_S; fails on a non-zero exit. Returns its wall seconds."""
+    import os
+    import signal
+
+    t0 = time.perf_counter()
+    with open(log, "w") as f:
+        proc = subprocess.Popen(cmd, cwd=here, stdout=f,
+                                stderr=subprocess.STDOUT, env=env,
+                                start_new_session=True)
+        try:
+            rc = proc.wait(timeout=DEMO_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+            rc = "killed at the time limit"
+    if rc != 0:
+        print(log.read_text()[-6000:], flush=True)
+        _fail(f"demo: {' '.join(map(str, cmd))} exited {rc}")
+    return time.perf_counter() - t0
+
+
+def drive_demo(card: str, here: Path, init_psnr: float) -> dict:
+    """Phase 16: ``demo_synthetic.sh`` under bash and ``tools.scaling
+    --device cuda`` on the card, each in processes of their own whose
+    launches are read from what they write. Returns {path: (K1, K2)}."""
+    import os
+
+    from mipnerf360_torch.apps.video import written_frames
+    from mipnerf360_torch.config import get_config
+    from mipnerf360_torch.data.synthetic import synthetic_dataset
+
+    t_start = time.perf_counter()
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_demo_",
+                                 dir=here / "build"))
+    paths = {}
+    try:
+        counts, ckpt = work / "launches.jsonl", work / "ckpt"
+        shim = work / "bin" / "python"
+        shim.parent.mkdir()
+        shim.write_text(f'#!/bin/sh\nexec "{sys.executable}" '
+                        f'"{here / "chip_smoke.py"}" --worker 16 '
+                        f'"{counts}" "$@"\n')
+        shim.chmod(0o755)
+        env = dict(os.environ, STEPS=str(DEMO_STEPS), CKPT=str(ckpt),
+                   DEVICE="cuda",
+                   PATH=f"{shim.parent}{os.pathsep}{os.environ['PATH']}")
+        script = here / "mipnerf360_torch" / "demo" / "demo_synthetic.sh"
+        wall = _run_logged(["bash", str(script),
+                            *[a for s in DEMO_SETS for a in ("--set", s)]],
+                           here, work / "demo.log", env)
+        runs = [json.loads(line) for line in counts.read_text().splitlines()]
+
+        cfg = get_config("synthetic_quality")
+        test = synthetic_dataset(cfg.data, "test", background=1.0)
+        poses = cfg.data.synthetic_views
+        every = _cadences(cfg, ["train.log_every=100",
+                                f"train.max_steps={DEMO_STEPS}", *DEMO_SETS])
+        per_view = 2 * -(-test.h * test.w // 4096)    # --chunk 4096
+        want = {"mipnerf360_torch.apps.train":
+                _trainer_launches(cfg, every, test, 0, DEMO_STEPS),
+                "mipnerf360_torch.apps.eval": (per_view * test.n_images, 0),
+                "mipnerf360_torch.apps.video": (per_view * poses, 0)}
+        got = {r["module"]: (r["k1"], r["k2"]) for r in runs}
+        print(f"demo: demo_synthetic.sh STEPS={DEMO_STEPS} "
+              f"{' '.join(DEMO_SETS)} in {wall:.1f} s (three processes); "
+              + "; ".join(f"{m.split('.')[-1]} K1 {k[0]}, K2 {k[1]} "
+                          f"(expected {want.get(m)})" for m, k in got.items()),
+              flush=True)
+        if got != want:
+            _fail(f"demo: launches {got}, expected {want}")
+        for m, k in got.items():
+            paths[f"demo_synthetic_{m.split('.')[-1]}"] = k
+
+        summary = json.loads((ckpt / "test" / "eval.json").read_text())
+        frames = written_frames(str(ckpt / "video.mp4"))
+        print(f"demo: eval --step best restored step {summary['step']}: "
+              f"mean PSNR {summary['mean_psnr']:.3f} dB, SSIM "
+              f"{summary.get('mean_ssim', float('nan')):.4f} over "
+              f"{summary['n_views']} views, against {init_psnr:.3f} dB for "
+              f"phase 4's random-init render; video {frames} frames "
+              f"(expected {poses}); on {card}", flush=True)
+        if (summary["n_views"] != test.n_images
+                or not np.isfinite(summary["mean_psnr"])
+                or not summary["mean_psnr"] > init_psnr):
+            _fail("demo: the eval is not finite or not above the "
+                  "random-init PSNR")
+        if summary["step"] != DEMO_STEPS or frames != poses:
+            _fail(f"demo: best checkpoint at step {summary['step']}, "
+                  f"{frames} video frames")
+
+        out = work / "scaling.json"
+        wall = _run_logged([sys.executable, "-m",
+                            "mipnerf360_torch.tools.scaling", "--device",
+                            "cuda", *SCALING_ARGS, "--out", str(out)],
+                           here, work / "scaling.log")
+        res = json.loads(out.read_text())
+        rows = {r["global_devices"]: r for r in res["virtual_mesh_rows"]["rows"]}
+        calls = 2 + SCALING_REPS
+        want = (2 * SCALING_STEPS * calls,) * 2
+        for world, r in sorted(rows.items()):
+            print(f"scaling: world {world} ({r['backend']}, cards shared "
+                  f"{r['cards_shared']}): {r['steps_per_sec']} steps/s, "
+                  f"losses {r['losses']}, rank 0 K1 "
+                  f"{r['launches']['composite_fwd']}, K2 "
+                  f"{r['launches']['composite_bwd']} (expected {want}); "
+                  f"{r['card']}", flush=True)
+            got = (r["launches"]["composite_fwd"],
+                   r["launches"]["composite_bwd"])
+            if got != want or r["card"] != card:
+                _fail(f"scaling: world {world} launched {got}, expected "
+                      f"{want}, on {r['card']}")
+            paths[f"scaling_world{world}_rank0"] = got
+        if sorted(rows) != [1, 2] or not all(
+                np.isfinite(r["losses"] + r["first_losses"]).all()
+                for r in rows.values()):
+            _fail(f"scaling: rows {sorted(rows)} or non-finite losses")
+        if (rows[1]["backend"], rows[2]["backend"]) != ("nccl", "gloo"):
+            _fail("scaling: world 1 must run over NCCL and world 2 over "
+                  "gloo on the one card")
+        for key in ("first_losses", "losses"):
+            gap = np.max(np.abs(np.subtract(rows[2][key], rows[1][key]))
+                         / np.abs(rows[1][key]))
+            print(f"scaling: {key} world 2 against world 1: largest "
+                  f"relative gap {gap:.3e}", flush=True)
+            if not np.allclose(rows[2][key], rows[1][key],
+                               **SCALING_LOSS_TOL):
+                _fail(f"scaling: world 2's {key} disagree with world 1's")
+        for world, r in sorted(rows.items()):
+            if not np.mean(r["losses"]) < np.mean(r["first_losses"]):
+                _fail(f"scaling: world {world}'s loss did not fall from the "
+                      f"first call ({r['first_losses']}) to the last "
+                      f"({r['losses']})")
+        print(f"scaling: {wall:.1f} s (start-up included); world 2 against "
+              f"world 1: efficiency {res['headline']['efficiency_2proc_vs_1proc']}"
+              f", losses within rtol {SCALING_LOSS_TOL['rtol']} / atol "
+              f"{SCALING_LOSS_TOL['atol']}; phase 16 took "
+              f"{time.perf_counter() - t_start:.1f} s on {card}", flush=True)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return paths
+
+
 def main() -> int:
     if len(sys.argv) > 2 and sys.argv[1] == "--worker":
-        # A rank of phase 12, started by torchrun from drive_parallel.
+        # A rank of phase 12, started by torchrun from drive_parallel, or
+        # phase 16's python shim.
         here = Path(__file__).resolve().parent
         sys.path.insert(0, str(here))
-        if sys.argv[2] == "12a":
+        if sys.argv[2] == "16":
+            _worker_16(Path(sys.argv[3]), sys.argv[4:])
+        elif sys.argv[2] == "12a":
             _worker_12a(Path(sys.argv[3]), sys.argv[4:])
         else:
             _worker_12b(Path(sys.argv[3]), sys.argv[4])
@@ -2298,6 +2498,9 @@ def main() -> int:
     paths.update(drive_quality(composite, card, here))
     # Phase 15: the spike regime of the distillation loss.
     paths.update(drive_spike(composite, card, here))
+    # Phase 16: the demo scripts and the scaling harness, as a user runs
+    # them.
+    paths.update(drive_demo(card, here, init_psnr))
     paths = {"render": (k1_render, k2_render), "train": (k1_train, k2_train),
              "trainer": trainer, **paths}
 

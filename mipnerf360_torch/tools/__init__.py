@@ -12,4 +12,9 @@ power limit) beside every rate it prints.
 - ``parity_psnr``: the quality record, PSNR at equal iterations against
   the recorded reference run and convergence at the flagship operating
   point (its sections name the card but hold no rate).
+- ``scaling`` (with its worker ``_scaling_worker``): one global batch over
+  1, 2, ... data ranks, each rank a process of its own, and world 2
+  against world 1.
+- ``preset_record``: the JAX package's preset validations repeated through
+  the demo scripts (``mipnerf360_torch/demo/``) and the entry points.
 """

@@ -249,14 +249,17 @@ def make_train_loop(cfg: Config, data_shards: int = 1, mesh=None):
 
     The counterpart of the JAX package's scanned loop. Nothing in it syncs
     with the host, so the host queues the K steps ahead of the card; the
-    caller reads the stacked aux once per chunk."""
+    caller reads the stacked aux once per chunk. ``noise``, when given,
+    holds each step's ``noise`` argument, in order (the tests pass the
+    uniforms the JAX package draws)."""
     step = make_train_step(cfg, data_shards, mesh)
 
-    def loop(state, rays_stack, pixels_stack):
+    def loop(state, rays_stack, pixels_stack, noise=None):
         auxes = []
         for i in range(pixels_stack.shape[0]):
             state, aux = step(state, rays_map(lambda x: x[i], rays_stack),
-                              pixels_stack[i])
+                              pixels_stack[i],
+                              noise=None if noise is None else noise[i])
             auxes.append(aux)
         return state, _stack(auxes)
 

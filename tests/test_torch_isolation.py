@@ -8,6 +8,7 @@ without JAX (``--noconftest``: tests/conftest.py imports JAX), as the README
 says.
 """
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -50,12 +51,28 @@ def test_port_and_chip_smoke_import_no_jax():
         required = {"mipnerf360_torch.parallel.mesh",
                     "mipnerf360_torch.parallel.collectives",
                     "mipnerf360_torch.parallel.sample_axis",
-                    "mipnerf360_torch.tools.parity_psnr"}
+                    "mipnerf360_torch.tools.parity_psnr",
+                    "mipnerf360_torch.tools.scaling",
+                    "mipnerf360_torch.tools._scaling_worker",
+                    "mipnerf360_torch.tools.preset_record"}
         print(len(names), bad, sorted(required - set(names)))
         sys.exit(1 if bad or len(names) < 20 or required - set(names) else 0)
     """)
     res = _run(["-c", code], cwd=REPO)
     assert res.returncode == 0, res.stdout + res.stderr
+
+
+@pytest.mark.parametrize("script", ["demo_synthetic.sh", "demo_360.sh"])
+def test_demo_scripts_run_only_the_port(script):
+    """The port's demo scripts call ``python -m mipnerf360_torch.*`` and
+    nothing else: no JAX package, no script of the JAX package's."""
+    text = (REPO / "mipnerf360_torch" / "demo" / script).read_text()
+    code = [ln for ln in text.splitlines() if not ln.lstrip().startswith("#")]
+    modules = re.findall(r"python -m (\S+)", "\n".join(code))
+    assert modules == [f"mipnerf360_torch.apps.{m}"
+                       for m in ("train", "eval", "video")]
+    assert "mipnerf360_tpu" not in text and "jax" not in "\n".join(code)
+    assert not re.search(r"\b(tools|demo)/", "\n".join(code))
 
 
 def test_failed_process_group_raises(monkeypatch):

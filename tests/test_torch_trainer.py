@@ -391,8 +391,13 @@ def test_sigterm_flushes_checkpoint(tmp_path):
         metrics = os.path.join(ckpt, "metrics.jsonl")
         deadline = time.time() + 300
         while time.time() < deadline:
-            if os.path.exists(metrics) and os.path.getsize(metrics) > 0:
-                break
+            # The first log boundary: a train record. The trainer writes
+            # its data record at step 0, before the first step, so a
+            # non-empty file alone does not mean a step was taken.
+            if os.path.exists(metrics):
+                with open(metrics) as f:
+                    if "train/loss" in f.read():
+                        break
             if proc.poll() is not None:
                 pytest.fail(f"train exited early:\n{proc.stdout.read()}")
             time.sleep(0.2)
