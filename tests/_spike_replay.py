@@ -223,6 +223,20 @@ def state_device(state) -> torch.device:
     return state.params["prop"]["layers"][0]["w"].device
 
 
+def trainer_batch(cfg, ds, bank, state, k: int):
+    """Step k's batch (the trainer's, from ``bank`` on the card) and noise
+    (drawn from ``state``'s generator, as the step would)."""
+    bank_rays, bank_pix = bank
+    device = bank_pix.device
+    idx = torch.as_tensor(ds.index_stack(1, cfg.train.batch_size,
+                                         cfg.train.seed, k - 1)[0])
+    idx = idx.long().to(device)
+    noise = draw_render_noise(state.generator, cfg.train.batch_size,
+                              cfg.model.num_samples, device)
+    return (rays_map(lambda x: x.index_select(0, idx), bank_rays),
+            bank_pix.index_select(0, idx), noise)
+
+
 def grads_and_update(cfg, state, rays, pixels, noise, recorder=None,
                      subtrees=("prop", "nerf")):
     """One joint step of ``state`` in place, updating ``subtrees``: (grads
@@ -444,13 +458,7 @@ def run(seed: int, start: int, out: str, device: str = "cuda",
                  + leaf_names(state.params["nerf"], "nerf."))
 
         def next_batch(k):
-            """Step k's batch (the trainer's) and noise (the generator's)."""
-            idx = torch.as_tensor(ds.index_stack(1, batch_size, seed,
-                                                 k - 1)[0]).long().to(device)
-            noise = draw_render_noise(state.generator, batch_size,
-                                      cfg.model.num_samples, device)
-            return (rays_map(lambda x: x.index_select(0, idx), bank_rays),
-                    bank_pix.index_select(0, idx), noise)
+            return trainer_batch(cfg, ds, (bank_rays, bank_pix), state, k)
 
         # row a: the run's own steps, logged, to the spike and AFTER more;
         # the state before each step up to the spike kept for the rows
