@@ -57,7 +57,14 @@ port's two paths at the full width of the ``synthetic_quality`` preset:
   ``python -m mipnerf360_torch.tools.scaling --device cuda --ranks 1,2``,
   whose world-2 losses must agree with world 1's at a float32 tolerance
   and whose loss must fall from the first call to the last. Each of their
-  processes reports its own launch counts.
+  processes reports its own launch counts;
+- the paths of the parity presets' NDC rays and of the two render paths
+  that the 360 and forward-facing presets ship: ``apps.train --preset
+  llff_fern`` (NDC) on a forward-facing export and ``apps.video`` on its
+  spiral path, ``apps.train --preset bicycle_multihost_quality`` on a 360
+  export and ``apps.video`` on its spherified orbit (losses finite, fern's
+  falling), and the NDC render of the trained fern model, card against
+  CPU.
 
 Each path runs with the kernels' launch counts set to 0 just before it and
 read just after. The card is checked against the CPU on the render (the
@@ -249,6 +256,24 @@ SCALING_ARGS = ["--ranks", "1,2", "--steps", str(SCALING_STEPS), "--reps",
                 str(SCALING_REPS)]
 DEMO_TIMEOUT_S = 600
 SCALING_LOSS_TOL = dict(rtol=1e-4, atol=0.0)
+
+# Phase 17: the paths of the preset record's R6-R8 that no earlier phase
+# drives, through apps.train and apps.video in process, on the exporters'
+# scenes (``tools/parity_psnr.py``) at NEW_RES pixels a side and NEW_VIEWS
+# views: ``llff_fern`` (the parity model with NDC rays, batch 64) on a
+# forward-facing export (cameras on a NEW_ARC-degree arc) and
+# ``bicycle_multihost_quality`` on a 360 one, each NEW_STEPS steps logged
+# every step (finite losses), then NEW_POSES poses of its render path (the
+# spiral, the spherified orbit). The fern loss must fall: the mean of its
+# last NEW_FALL_STEPS below that of its first (one 64-ray loss moves by
+# ~15% from step to step; on the H100 the means went 28.5 -> 23.1). The
+# quality presets start at 1% of their LR (lr_delay_mult 0.01), so 20
+# steps move bicycle's loss by less than its noise (on the H100: 17.05 ->
+# 17.03). The NDC render is held card against
+# CPU on PARITY_RAYS held-out rays of the trained fern checkpoint, at
+# phase 5's tolerances.
+NEW_RES, NEW_VIEWS, NEW_ARC = 64, 32, 40
+NEW_STEPS, NEW_FALL_STEPS, NEW_POSES = 20, 5, 2
 
 # K1 against its plain version: the JAX package's Pallas-vs-core tolerance
 # (tests/test_pallas_ops.py). The two differ only in the order of the
@@ -2317,6 +2342,94 @@ def drive_demo(card: str, here: Path, init_psnr: float) -> dict:
     return paths
 
 
+def drive_new_paths(composite, card: str, here: Path) -> dict:
+    """Phase 17: ``llff_fern`` (NDC) on a forward-facing export with its
+    spiral video, ``bicycle_multihost_quality`` on a 360 export with its
+    spherified video, and the NDC render card against CPU. Returns {path:
+    (K1, K2)}."""
+    from mipnerf360_torch.apps import train as train_app
+    from mipnerf360_torch.apps import video as video_app
+    from mipnerf360_torch.apps.common import apply_overrides
+    from mipnerf360_torch.config import Config, get_config
+    from mipnerf360_torch.core.rays import take_rays
+    from mipnerf360_torch.data import get_dataset
+    from mipnerf360_torch.models.mipnerf360 import map_params
+    from mipnerf360_torch.tools.parity_psnr import export_llff_scene
+    from mipnerf360_torch.train.checkpoint import restore_checkpoint
+    from mipnerf360_torch.train.state import init_train_state
+
+    t_start = time.perf_counter()
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_new_",
+                                 dir=here / "build"))
+    paths = {}
+    try:
+        scenes = {"llff_fern": export_llff_scene(
+                      str(work / "forward_facing"), NEW_RES, NEW_VIEWS,
+                      arc_degrees=NEW_ARC),
+                  "bicycle_multihost_quality": export_llff_scene(
+                      str(work / "orbit"), NEW_RES, NEW_VIEWS)}
+        chunks = -(-NEW_RES * NEW_RES // 8192)        # the apps' --chunk
+        for preset, tag, path in (("llff_fern", "ndc_fern", "spiral"),
+                                  ("bicycle_multihost_quality", "bicycle",
+                                   "spherified orbit")):
+            ckpt = work / tag
+            sets = [f"data.base_dir={scenes[preset]}", "data.factor=1",
+                    f"train.max_steps={NEW_STEPS}",
+                    "train.log_every=1",
+                    f"train.checkpoint_dir={ckpt}"]
+            cfg = apply_overrides(get_config(preset), sets)
+            test = SimpleNamespace(n_images=len(range(0, NEW_VIEWS, 8)),
+                                   h=NEW_RES, w=NEW_RES)
+            argv = ["--preset", preset, "--device", "cuda",
+                    *[a for s in sets for a in ("--set", s)]]
+            _, launches, _ = _drive(
+                f"{tag} trainer ({preset}, use_ndc {cfg.data.use_ndc}, "
+                f"batch {cfg.train.batch_size}, steps 0 -> {NEW_STEPS})",
+                composite,
+                _trainer_launches(cfg, _cadences(cfg, sets), test, 0,
+                                  NEW_STEPS),
+                lambda: train_app.main(argv))
+            paths[f"{tag}_trainer"] = launches
+            losses = [r["train/loss"] for r in _metric_records(ckpt)
+                      if "train/loss" in r]
+            print(f"{tag} trainer: train/loss by step "
+                  f"{[round(v, 4) for v in losses]}", flush=True)
+            if len(losses) != NEW_STEPS or not np.isfinite(losses).all():
+                _fail(f"{tag} trainer: losses {losses} are not finite")
+            if preset == "llff_fern" and not (
+                    np.mean(losses[-NEW_FALL_STEPS:])
+                    < np.mean(losses[:NEW_FALL_STEPS])):
+                _fail(f"{tag} trainer: losses {losses} did not fall")
+            video, launches, _ = _drive(
+                f"{tag} apps.video, {NEW_POSES} poses of the {path}",
+                composite, (2 * NEW_POSES * chunks, 0),
+                lambda: video_app.main([
+                    "--ckpt", str(ckpt), "--device", "cuda",
+                    "--set", f"data.n_render_poses={NEW_POSES}"]))
+            _check_video(video, NEW_POSES, (NEW_RES, NEW_RES), tag, card)
+            paths[f"{tag}_video"] = launches
+
+        # The NDC render of the trained fern model, card against CPU.
+        ckpt = work / "ndc_fern"
+        cfg = Config.from_json((ckpt / "config.json").read_text())
+        template = init_train_state(cfg.model, cfg.train, device="cpu")
+        template.generator = None
+        params_cpu = restore_checkpoint(str(ckpt), template).params
+        params = map_params(lambda p: p.cuda(), params_cpu)
+        test = get_dataset(cfg.data, "test", white_bkgd=cfg.model.white_bkgd)
+        rays = take_rays(test.rays, slice(0, PARITY_RAYS))
+        print(f"ndc_fern: {PARITY_RAYS} held-out NDC rays (near "
+              f"{test.near}, far {test.far}; |origin| up to "
+              f"{np.abs(rays.origins).max():.3g})", flush=True)
+        check_render_card_vs_cpu(cfg.model, params_cpu, params, rays,
+                                 "llff_fern NDC, trained")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"new paths: phase 17 took {time.perf_counter() - t_start:.1f} s "
+          f"on {card}", flush=True)
+    return paths
+
+
 def main() -> int:
     if len(sys.argv) > 2 and sys.argv[1] == "--worker":
         # A rank of phase 12, started by torchrun from drive_parallel, or
@@ -2501,6 +2614,8 @@ def main() -> int:
     # Phase 16: the demo scripts and the scaling harness, as a user runs
     # them.
     paths.update(drive_demo(card, here, init_psnr))
+    # Phase 17: the NDC path, the spiral and the spherified render paths.
+    paths.update(drive_new_paths(composite, card, here))
     paths = {"render": (k1_render, k2_render), "train": (k1_train, k2_train),
              "trainer": trainer, **paths}
 

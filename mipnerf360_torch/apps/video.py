@@ -60,23 +60,31 @@ def _write_video(path: str, frames, fps: int = 30) -> str:
         return frame_dir
 
 
-def written_frames(path: str) -> int:
-    """The number of frames :func:`_write_video` wrote for ``path``, read
-    back from the first of its outputs that exists, in the writer's order
-    (0 when none does)."""
+def read_frames(path: str) -> list:
+    """The uint8 frames :func:`_write_video` wrote for ``path``, read back
+    from the first of its outputs that exists, in the writer's order (none
+    when none does)."""
     avi = os.path.splitext(path)[0] + ".avi"
     frame_dir = path + ".frames"
     if os.path.exists(path):
         import imageio
 
-        return len(imageio.mimread(path, memtest=False))
+        return list(imageio.mimread(path, memtest=False))
     if os.path.exists(avi):
         from ..utils.video_io import read_mjpeg_avi
 
-        return len(read_mjpeg_avi(avi))
+        return read_mjpeg_avi(avi)
     if os.path.isdir(frame_dir):
-        return len([f for f in os.listdir(frame_dir) if f.endswith(".png")])
-    return 0
+        from ..utils.png import read_png
+
+        return [read_png(os.path.join(frame_dir, f))
+                for f in sorted(os.listdir(frame_dir)) if f.endswith(".png")]
+    return []
+
+
+def written_frames(path: str) -> int:
+    """The number of frames :func:`_write_video` wrote for ``path``."""
+    return len(read_frames(path))
 
 
 def main(argv=None):
