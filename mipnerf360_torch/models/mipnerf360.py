@@ -33,6 +33,7 @@ from ..ops import fused
 from ..parallel.collectives import gather_cat
 from ..parallel.mesh import make_mesh, rank_device
 from ..parallel.sample_axis import make_sample_sharded_composite
+from ..utils.trace import span
 from .mlp import apply_mlp, init_mlp
 
 Params = Dict[str, Any]
@@ -117,35 +118,39 @@ def _softplus(x):
 
 def _encode(cfg: ModelConfig, rays: Rays, t_vals):
     """Cast intervals to contracted Gaussians and build MLP input features."""
-    if cfg.factored_encode:
-        pos = factored_ipe(t_vals, rays.origins, rays.directions, rays.radii,
-                           ray_shape=cfg.ray_shape,
-                           min_deg=cfg.ipe_min_deg,
-                           max_deg=cfg.ipe_max_deg)     # [B, N, 42*scales]
-    else:
-        means, covs = cast_rays(t_vals, rays.origins, rays.directions,
-                                rays.radii, ray_shape=cfg.ray_shape)
-        pos = integrated_pos_enc(means, covs, cfg.ipe_min_deg,
-                                 cfg.ipe_max_deg)       # [B, N, 42*scales]
-    view = viewdir_enc(rays.viewdirs, cfg.viewdir_min_deg, cfg.viewdir_max_deg)
-    view = view[..., None, :].expand(pos.shape[:-1] + (view.shape[-1],))
-    x = torch.cat([pos, view], dim=-1)
-    pad = cfg.padded_input_dim - cfg.input_dim
-    if pad:
-        x = torch.cat([x, x.new_zeros(x.shape[:-1] + (pad,))], dim=-1)
-    return x
+    with span("model.encode"):
+        if cfg.factored_encode:
+            pos = factored_ipe(t_vals, rays.origins, rays.directions,
+                               rays.radii, ray_shape=cfg.ray_shape,
+                               min_deg=cfg.ipe_min_deg,
+                               max_deg=cfg.ipe_max_deg)  # [B, N, 42*scales]
+        else:
+            means, covs = cast_rays(t_vals, rays.origins, rays.directions,
+                                    rays.radii, ray_shape=cfg.ray_shape)
+            pos = integrated_pos_enc(means, covs, cfg.ipe_min_deg,
+                                     cfg.ipe_max_deg)    # [B, N, 42*scales]
+        view = viewdir_enc(rays.viewdirs, cfg.viewdir_min_deg,
+                           cfg.viewdir_max_deg)
+        view = view[..., None, :].expand(pos.shape[:-1] + (view.shape[-1],))
+        x = torch.cat([pos, view], dim=-1)
+        pad = cfg.padded_input_dim - cfg.input_dim
+        if pad:
+            x = torch.cat([x, x.new_zeros(x.shape[:-1] + (pad,))], dim=-1)
+        return x
 
 
 def prop_forward(params: Params, cfg: ModelConfig, rays: Rays,
                  randomized: bool, *, noise=None, generator=None):
     """Proposal level: sample -> encode -> density -> weights."""
-    t_vals = sample_along_rays(rays.near, rays.far, cfg.num_samples, randomized,
-                               noise=noise, generator=generator)
+    with span("model.sample"):
+        t_vals = sample_along_rays(rays.near, rays.far, cfg.num_samples,
+                                   randomized, noise=noise, generator=generator)
     x = _encode(cfg, rays, t_vals)
     raw = apply_mlp(params["prop"], x, _prop_activations(cfg), _compute_dtype(cfg))
-    density = _softplus(raw[..., 0] + cfg.density_bias)
-    weights = fused.compute_alpha_weights(
-        density, t_vals, rays.directions, cfg.use_pallas)
+    with span("model.composite"):
+        density = _softplus(raw[..., 0] + cfg.density_bias)
+        weights = fused.compute_alpha_weights(
+            density, t_vals, rays.directions, cfg.use_pallas)
     return t_vals, weights
 
 
@@ -165,10 +170,11 @@ def nerf_forward(params: Params, cfg: ModelConfig, rays: Rays, t_vals, weights,
     ``params["nerf"]["trunk"]`` is this rank's tensor-parallel shard over
     that group (``parallel.mesh.shard_params``).
     """
-    new_t = fused.resample_along_rays(t_vals, weights, randomized,
-                                      cfg.resample_padding, cfg.use_pallas,
-                                      u_typo=cfg.resample_u_typo,
-                                      noise=noise, generator=generator)
+    with span("model.sample"):
+        new_t = fused.resample_along_rays(t_vals, weights, randomized,
+                                          cfg.resample_padding, cfg.use_pallas,
+                                          u_typo=cfg.resample_u_typo,
+                                          noise=noise, generator=generator)
     full_t = new_t
     if composite_fn is not None:
         sl = composite_fn.local_slice(new_t.shape[-1] - 1)
@@ -191,17 +197,18 @@ def nerf_forward(params: Params, cfg: ModelConfig, rays: Rays, t_vals, weights,
     else:
         raw_density, raw_rgb = tower(params["nerf"], x)
 
-    rgb = raw_rgb * (1.0 + 2.0 * cfg.rgb_padding) - cfg.rgb_padding
-    density = _softplus(raw_density[..., 0] + cfg.density_bias)
-    if composite_fn is not None:
-        comp_rgb, distance, acc, w = composite_fn(rgb, density, full_t,
-                                                  rays.directions)
-    else:
-        w = fused.compute_alpha_weights(
-            density, new_t, rays.directions, cfg.use_pallas)
-        comp_rgb, distance, acc = composite_outputs(rgb, w, new_t,
-                                                    cfg.white_bkgd)
-    s_vals = t_to_s(new_t, rays.near, rays.far)
+    with span("model.composite"):
+        rgb = raw_rgb * (1.0 + 2.0 * cfg.rgb_padding) - cfg.rgb_padding
+        density = _softplus(raw_density[..., 0] + cfg.density_bias)
+        if composite_fn is not None:
+            comp_rgb, distance, acc, w = composite_fn(rgb, density, full_t,
+                                                      rays.directions)
+        else:
+            w = fused.compute_alpha_weights(
+                density, new_t, rays.directions, cfg.use_pallas)
+            comp_rgb, distance, acc = composite_outputs(rgb, w, new_t,
+                                                        cfg.white_bkgd)
+        s_vals = t_to_s(new_t, rays.near, rays.far)
     return {
         "rgb": comp_rgb,
         "distance": distance,
@@ -268,8 +275,9 @@ def render_image(params: Params, cfg: ModelConfig, rays: Rays, *,
     elif mesh is not None:
         tp_group = mesh.model_group
     device = mesh.device if mesh is not None else resolve_device(device)
-    rays = rays_to_device(rays, device)
-    params = map_params(lambda p: p.to(device), params)
+    with span("render.upload"):
+        rays = rays_to_device(rays, device)
+        params = map_params(lambda p: p.to(device), params)
     lo, per = 0, chunk
     if mesh is not None:
         chunk = -(-chunk // mesh.data) * mesh.data
@@ -284,15 +292,16 @@ def render_image(params: Params, cfg: ModelConfig, rays: Rays, *,
     rgb, distance, acc = [], [], []
     with torch.inference_mode():
         for start in range(lo, n + pad, chunk):
-            chunk_rays = rays_map(lambda x: x[start:start + per], rays)
-            out = render_rays(params, cfg, chunk_rays, randomized=False,
-                              composite_fn=composite_fn, tp_group=tp_group)
-            if mesh is not None:
-                packed = torch.cat([out["rgb"], out["distance"][:, None],
-                                    out["acc"][:, None]], dim=-1)
-                packed = gather_cat(packed, mesh.data_group, dim=0)
-                out = {"rgb": packed[:, :3], "distance": packed[:, 3],
-                       "acc": packed[:, 4]}
+            with span("render.chunk"):
+                chunk_rays = rays_map(lambda x: x[start:start + per], rays)
+                out = render_rays(params, cfg, chunk_rays, randomized=False,
+                                  composite_fn=composite_fn, tp_group=tp_group)
+                if mesh is not None:
+                    packed = torch.cat([out["rgb"], out["distance"][:, None],
+                                        out["acc"][:, None]], dim=-1)
+                    packed = gather_cat(packed, mesh.data_group, dim=0)
+                    out = {"rgb": packed[:, :3], "distance": packed[:, 3],
+                           "acc": packed[:, 4]}
             rgb.append(out["rgb"])
             distance.append(out["distance"])
             acc.append(out["acc"])

@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from ..parallel.collectives import all_reduce_, gather
+from ..utils.trace import span
 
 # Activations are referenced by name so configs stay serializable.
 ACTIVATIONS = {
@@ -187,13 +188,14 @@ def apply_mlp(params, x, activations: Sequence[str],
     layers = params["layers"]
     if len(layers) != len(activations):
         raise ValueError(f"{len(layers)} layers but {len(activations)} activations")
-    for i, (layer, act) in enumerate(zip(layers, activations)):
-        hidden = i + 1 < len(layers)
-        y = apply_linear(layer, x, compute_dtype, g_rounded=hidden,
-                         group=tp_group, row_split=i % 2 == 1)
-        if hidden:
-            y = y.to(compute_dtype)
-        x = ACTIVATIONS[act](y)
-    if tp_group is not None and len(layers) % 2:
-        x = gather(x, tp_group, dim=-1, sum_backward=False)
-    return x.to(torch.float32)
+    with span("model.mlp"):
+        for i, (layer, act) in enumerate(zip(layers, activations)):
+            hidden = i + 1 < len(layers)
+            y = apply_linear(layer, x, compute_dtype, g_rounded=hidden,
+                             group=tp_group, row_split=i % 2 == 1)
+            if hidden:
+                y = y.to(compute_dtype)
+            x = ACTIVATIONS[act](y)
+        if tp_group is not None and len(layers) % 2:
+            x = gather(x, tp_group, dim=-1, sum_backward=False)
+        return x.to(torch.float32)

@@ -27,6 +27,7 @@ import torch
 from ..config import ModelConfig, TrainConfig
 from ..core.rays import resolve_device
 from ..models.mipnerf360 import Params, init_model, map_params
+from ..utils.trace import span
 
 B1, B2, EPS = 0.9, 0.999, 1e-8
 
@@ -176,10 +177,11 @@ def apply_updates_subtree(params, grads, opt_state: AdamState, lr,
     bc1 = float(np.float32(1) - np.float32(B1) ** np.float32(opt_state.count))
     bc2 = float(np.float32(1) - np.float32(B2) ** np.float32(opt_state.count))
     lr = float(lr)
-    for p, g, mu, nu in zip(leaves(params), grads, leaves(opt_state.mu),
-                            leaves(opt_state.nu)):
-        mu.mul_(B1).add_((1 - B1) * g)
-        nu.mul_(B2).add_((1 - B2) * (g * g))
-        u = (mu / bc1) / (torch.sqrt(nu / bc2) + EPS)
-        u += weight_decay * p
-        p -= lr * u
+    with span("step.adamw"):
+        for p, g, mu, nu in zip(leaves(params), grads, leaves(opt_state.mu),
+                                leaves(opt_state.nu)):
+            mu.mul_(B1).add_((1 - B1) * g)
+            nu.mul_(B2).add_((1 - B2) * (g * g))
+            u = (mu / bc1) / (torch.sqrt(nu / bc2) + EPS)
+            u += weight_decay * p
+            p -= lr * u

@@ -47,6 +47,7 @@ from ..losses.photometric import photometric_loss
 from ..models.mipnerf360 import (RenderNoise, draw_render_noise, map_params,
                                  nerf_forward, prop_forward)
 from ..parallel.collectives import flat_all_reduce
+from ..utils.trace import span
 from .schedule import log_lerp_lr
 from .state import TrainState, apply_updates_subtree, leaves
 
@@ -112,10 +113,11 @@ def _prop_phase(state: TrainState, model_cfg, train_cfg, rays,
          "nerf": map_params(torch.Tensor.detach, state.params["nerf"])}
     t_prop, w_prop, out = _forward_both(p, model_cfg, rays, noise,
                                         state.generator, randomized, tp_group)
-    loss = distillation_loss(out["t_vals"].detach(), out["weights"].detach(),
-                             t_prop, w_prop,
-                             collapsed=train_cfg.quirk_collapsed_bounds,
-                             data_shards=data_shards, group=group)
+    with span("step.losses"):
+        loss = distillation_loss(
+            out["t_vals"].detach(), out["weights"].detach(), t_prop, w_prop,
+            collapsed=train_cfg.quirk_collapsed_bounds,
+            data_shards=data_shards, group=group)
     grads = _sum_grads(torch.autograd.grad(loss, leaves(state.params["prop"])),
                        mesh)
     apply_updates_subtree(state.params["prop"], grads, state.opt_state["prop"],
@@ -134,7 +136,8 @@ def _nerf_phase(state: TrainState, model_cfg, train_cfg, rays, pixels,
          "nerf": state.params["nerf"]}
     _, _, out = _forward_both(p, model_cfg, rays, noise, state.generator,
                               randomized, tp_group)
-    loss, aux = _nerf_losses(train_cfg, out, pixels, group)
+    with span("step.losses"):
+        loss, aux = _nerf_losses(train_cfg, out, pixels, group)
     grads = _sum_grads(torch.autograd.grad(loss, leaves(state.params["nerf"])),
                        mesh)
     lr = _lr(train_cfg, sched_count)
@@ -195,12 +198,13 @@ def joint_cadence_grads(cfg: Config, state: TrainState, rays: Rays, pixels,
     noise = _step_noise(cfg.model, state, rays, noise, randomized, mesh)
     t_prop, w_prop, out = _forward_both(params, cfg.model, rays, noise,
                                         state.generator, randomized, tp_group)
-    loss, aux = _nerf_losses(cfg.train, out, pixels, group)
-    loss_prop = distillation_loss(
-        out["t_vals"].detach(), out["weights"].detach(), t_prop, w_prop,
-        collapsed=cfg.train.quirk_collapsed_bounds, data_shards=data_shards,
-        group=group)
-    loss = loss + loss_prop
+    with span("step.losses"):
+        loss, aux = _nerf_losses(cfg.train, out, pixels, group)
+        loss_prop = distillation_loss(
+            out["t_vals"].detach(), out["weights"].detach(), t_prop, w_prop,
+            collapsed=cfg.train.quirk_collapsed_bounds,
+            data_shards=data_shards, group=group)
+        loss = loss + loss_prop
     prop, nerf = leaves(params["prop"]), leaves(params["nerf"])
     grads = _sum_grads(torch.autograd.grad(loss, prop + nerf), mesh)
     aux = {k: v.detach() for k, v in aux.items()}

@@ -40,6 +40,7 @@ from ..parallel.mesh import (any_rank, broadcast_state_, gather_params,
                              rank_device, shard_batch, shard_state)
 from ..utils import metrics
 from ..utils.logging import MetricsLogger, Timer
+from ..utils.trace import span
 from .checkpoint import (AsyncCheckpointer, latest_checkpoint_step,
                          restore_checkpoint, save_checkpoint)
 from .state import TrainState, init_train_state
@@ -258,7 +259,8 @@ class BackgroundStager:
 
     def get(self):
         """Next staged item, or None at end of stream; re-raises worker errors."""
-        item, exc = self._q.get()
+        with span("trainer.wait"):
+            item, exc = self._q.get()
         if exc is not None:
             raise exc
         return item
