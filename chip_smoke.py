@@ -67,7 +67,12 @@ port's two paths at the full width of the ``synthetic_quality`` preset:
   CPU.
 
 Each path runs with the kernels' launch counts set to 0 just before it and
-read just after. The card is checked against the CPU on the render (the
+read just after: K1, K2 and E = {E1, E2, E3}, the MLP epilogue kernels
+(phase 3c's own calls count on no path). Where a path's K1 and K2 count its
+forwards of both levels (two K1 each) and its train steps (two K2 each), E
+must follow from them and the path's model (``_epilogue_want``): the train
+step, the renders, the trainers, evals and videos, 12a and the demo; the
+rest report E unchecked, and ``tools.scaling``'s rows carry no E. The card is checked against the CPU on the render (the
 synthetic and the garden rays), the train step and LPIPS. Any failure exits
 non-zero. It needs one CUDA device, and
 refuses to run without one or without the package beside it.
@@ -560,6 +565,138 @@ def check_k2(composite, floor_ms, flush):
     return dict(max_abs_err=max_err, **times)
 
 
+# Phase 3c: the MLP epilogue kernels E1-E3 at the main path's shapes: a
+# train step's rows (4096 rays x 64 samples) at the NeRF's width 1024 and
+# the proposal's 256. Each is held to its plain version (outputs bit for
+# bit, the bias gradient within EPILOGUE_DB_RTOL of each column's sum of
+# magnitudes) and timed as phase 3 times K1 and K2, with graphs of
+# EPILOGUE_CALLS calls: a call moves ~1-2 GB, far more than L2 holds.
+EPILOGUE_ROWS = 4096 * 64
+EPILOGUE_CALLS, EPILOGUE_REPS = 10, 11
+EPILOGUE_DB_RTOL = 1e-6
+
+
+def _epilogue_cases(epi, n: int):
+    """(tag, kernel, plain, args, bytes moved) at [EPILOGUE_ROWS, n]: E1,
+    E2 with one and two dX parts, and E3 as the NeRF tower (two heads of 1
+    and 3 outputs, split) or the proposal (one of 1) takes it."""
+    m = EPILOGUE_ROWS
+    gen = torch.Generator("cuda").manual_seed(n)
+
+    def normal(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    h = torch.relu(normal(m, n)).to(torch.bfloat16)
+    widths, split = ((1, 3), True) if n == 1024 else ((1,), False)
+    heads = []
+    for k in widths:
+        g = normal(m, k)
+        hi = g.to(torch.bfloat16)
+        heads.append((hi, (g - hi.float()).to(torch.bfloat16),
+                      normal(n, k).to(torch.bfloat16)))
+    head_bytes = sum(2 * (2 * m * k + n * k) for k in widths)
+    dx = [normal(m, n), normal(m, n)]
+    return [
+        ("E1", epi.bias_relu, epi.plain_bias_relu, (normal(m, n), normal(n)),
+         6 * m * n + 4 * n),
+        ("E2", epi.relu_bwd, epi.plain_relu_bwd, (dx[:1], h),
+         8 * m * n + 4 * n),
+        ("E2 two parts", epi.relu_bwd, epi.plain_relu_bwd, (dx, h),
+         12 * m * n + 4 * n),
+        ("E3 split" if split else "E3", epi.heads_relu_bwd,
+         epi.plain_heads_relu_bwd, (h, heads, split),
+         (6 if split else 4) * m * n + head_bytes + 4 * n),
+    ]
+
+
+def check_mlp_epilogue(floor_ms, flush) -> dict:
+    """Phase 3c: E1-E3 against their plain versions, then timed hot and
+    cold beside each byte bound and the plain version's time."""
+    from mipnerf360_torch.ops import mlp_epilogue as epi
+
+    out = {}
+    for n in (1024, 256):
+        for tag, fn, plain, args, nbytes in _epilogue_cases(epi, n):
+            got, want = fn(*args), plain(*args)
+            if tag == "E1":
+                ok, db_err = torch.equal(got, want), 0.0
+            else:
+                (g, db), (g_want, db_want) = got, want
+                g, g_want = (list(g), list(g_want)) if tag.startswith("E3") \
+                    else ([g], [g_want])
+                ok = all(torch.equal(a, b) for a, b in zip(g, g_want))
+                scale = g_want[0].float().abs().sum(0)
+                db_err = ((db - db_want).abs() / scale.clamp_min(1e-30)
+                          ).max().item()
+                ok = ok and db_err <= EPILOGUE_DB_RTOL
+            print(f"{tag} vs plain M={EPILOGUE_ROWS} N={n}: outputs "
+                  f"{'equal' if ok else 'DIFFER'}, bias gradient within "
+                  f"{db_err:.2e} of the column sums of magnitudes", flush=True)
+            if not ok:
+                _fail(f"{tag} disagrees with its plain version at N={n}")
+            del got, want
+            ms = _device_ms(lambda: fn(*args), EPILOGUE_CALLS, EPILOGUE_REPS)
+            plain_ms = _device_ms(lambda: plain(*args), EPILOGUE_CALLS,
+                                  EPILOGUE_REPS)
+            cold_ms, (q1, q3), _ = _cold_ms(lambda: fn(*args), flush,
+                                            EPILOGUE_CALLS, EPILOGUE_REPS)
+            bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            print(f"{tag} time M={EPILOGUE_ROWS} N={n}: hot {ms * 1e3:.1f} us,"
+                  f" cold {cold_ms * 1e3:.1f} us (quartiles {q1 * 1e3:.1f}-"
+                  f"{q3 * 1e3:.1f}), plain {plain_ms * 1e3:.1f} us; bound "
+                  f"{bound_ms * 1e3:.1f} us by bytes ({nbytes / 1e9:.3f} GB), "
+                  f"{100 * bound_ms / ms:.1f}% of it hot; harness floor "
+                  f"{floor_ms * 1e3:.3f} us", flush=True)
+            out[f"{tag} N={n}"] = dict(ms=ms, cold_ms=cold_ms,
+                                       plain_ms=plain_ms, bound_ms=bound_ms)
+    return out
+
+
+def _zero_counts(composite) -> None:
+    """Sets the launch counts of K1, K2 and E1-E3 to 0."""
+    from mipnerf360_torch.ops import mlp_epilogue
+
+    composite.launches = composite.bwd_launches = 0
+    for k in mlp_epilogue.launches:
+        mlp_epilogue.launches[k] = 0
+
+
+def _read_counts(composite) -> tuple:
+    """(K1, K2, {E1, E2, E3}) launches since :func:`_zero_counts`."""
+    from mipnerf360_torch.ops import mlp_epilogue
+
+    return (composite.launches, composite.bwd_launches,
+            dict(mlp_epilogue.launches))
+
+
+def _fused_stacks(mcfg) -> list:
+    """The hidden depth of each MLP stack of ``mcfg`` that runs through
+    E1-E3 on the card (``models/mlp.py::fused_relu_stack``): a bf16 model
+    without ``trunk_final_sigmoid`` (which ends the proposal's hidden layers
+    on a sigmoid too), at hidden widths the kernels take."""
+    from mipnerf360_torch.ops.mlp_epilogue import takes_width
+
+    if mcfg.compute_dtype != "bfloat16" or mcfg.trunk_final_sigmoid:
+        return []
+    return [depth for depth, width in (
+        (mcfg.proposal_depth, mcfg.hidden_proposal),
+        (mcfg.nerf_depth, mcfg.hidden_nerf)) if takes_width(width)]
+
+
+def _epilogue_want(mcfg, k1: int, k2: int) -> dict:
+    """E1-E3 launches of a path that launches K1 ``k1`` and K2 ``k2`` times
+    on a model ``mcfg``. A forward of both levels (of a train step, an eval
+    batch or a render chunk) launches K1 twice and E1 once per hidden layer
+    of each fused stack; a train step's backward K2 twice, E2 once per
+    hidden layer of each fused stack but its last, and E3 once per fused
+    stack."""
+    stacks = _fused_stacks(mcfg)
+    forwards, steps = k1 // 2, k2 // 2
+    return {"E1": forwards * sum(stacks),
+            "E2": steps * sum(d - 1 for d in stacks),
+            "E3": steps * len(stacks)}
+
+
 def _kernel_class(name: str) -> str:
     if "composite_fwd" in name:
         return "K1 composite"
@@ -675,9 +812,9 @@ def check_render_card_vs_cpu(mcfg, params_cpu, params, rays, tag: str):
 def drive_train(cfg, composite, card: str, profile_dir):
     """Phase 6: joint-cadence train steps at full width on the card: one warm
     step, then TRAIN_STEPS timed steps with the kernels' counts set to 0
-    just before and read just after. Returns (K1 launches, K2 launches,
-    the median rays/s of the timed steps, the profiled step's {kernel:
-    (launches, us)} or None)."""
+    just before and read just after. Returns ((K1, K2, {E1, E2, E3})
+    launches, the median rays/s of the timed steps, the profiled step's
+    {kernel: (launches, us)} or None)."""
     from mipnerf360_torch.core.rays import rays_to_device, take_rays
     from mipnerf360_torch.data.synthetic import synthetic_dataset
     from mipnerf360_torch.train import init_train_state, make_train_step
@@ -708,7 +845,7 @@ def drive_train(cfg, composite, card: str, profile_dir):
     torch.cuda.synchronize()
     warm = time.perf_counter() - t0
 
-    composite.launches = composite.bwd_launches = 0
+    _zero_counts(composite)
     times, auxes = [], []
     for rays, pixels in batches[1:]:
         t0 = time.perf_counter()
@@ -716,7 +853,8 @@ def drive_train(cfg, composite, card: str, profile_dir):
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
         auxes.append(aux)
-    k1, k2 = composite.launches, composite.bwd_launches
+    counts = _read_counts(composite)
+    k1, k2, e_train = counts
     peak = torch.cuda.max_memory_allocated()
 
     med = statistics.median(times)
@@ -737,6 +875,11 @@ def drive_train(cfg, composite, card: str, profile_dir):
     if (k1, k2) != (2 * len(times), 2 * len(times)):
         _fail(f"train steps launched K1 {k1} and K2 {k2} times, expected "
               f"{2 * len(times)} each")
+    e_want = _epilogue_want(mcfg, 2 * len(times), 2 * len(times))
+    print(f"train: MLP epilogue launches {e_train} (expected {e_want})",
+          flush=True)
+    if e_train != e_want:
+        _fail(f"train steps launched {e_train}, expected {e_want}")
     for i, aux in enumerate(auxes):
         bad = [k for k, v in aux.items() if not torch.isfinite(v).all()]
         if bad:
@@ -751,7 +894,7 @@ def drive_train(cfg, composite, card: str, profile_dir):
     if profile_dir is not None:
         trace = profile_call(lambda: step(state, *batches[1]), profile_dir,
                              "train")
-    return k1, k2, batch / med, trace
+    return counts, batch / med, trace
 
 
 def _rel_l2(a, b) -> float:
@@ -902,22 +1045,28 @@ def _trainer_launches(cfg, every: dict, test, start: int, end: int):
     return k1, 2 * (end - start)
 
 
-def _drive(label: str, composite, want, fn):
+def _drive(label: str, composite, want, fn, mcfg=None):
     """``fn()`` with the kernels' launch counts set to 0 just before and
-    read just after; fails unless they are ``want`` (K1, K2). Returns (what
-    ``fn`` returned, (K1, K2), wall seconds)."""
-    composite.launches = composite.bwd_launches = 0
+    read just after; fails unless K1 and K2 are ``want``, and, given the
+    path's model ``mcfg``, unless E1-E3 are :func:`_epilogue_want` of it.
+    Returns (what ``fn`` returned, (K1, K2, {E1, E2, E3}), wall seconds)."""
+    _zero_counts(composite)
     t0 = time.perf_counter()
     out = fn()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    got = (composite.launches, composite.bwd_launches)
+    got = _read_counts(composite)
+    e_want = None if mcfg is None else _epilogue_want(mcfg, *want)
     print(f"{label}: {wall:.1f} s, start-up included; K1 launches {got[0]}, "
-          f"K2 launches {got[1]} (expected {want[0]} and {want[1]})",
+          f"K2 launches {got[1]} (expected {want[0]} and {want[1]}); MLP "
+          f"epilogue launches {got[2]} ("
+          + (f"expected {e_want})" if e_want else "not predicted here)"),
           flush=True)
-    if got != tuple(want):
+    if got[:2] != tuple(want):
         _fail(f"{label} launched K1 {got[0]} and K2 {got[1]} times, "
               f"expected {tuple(want)}")
+    if e_want is not None and got[2] != e_want:
+        _fail(f"{label} launched {got[2]}, expected {e_want}")
     return out, got, wall
 
 
@@ -939,7 +1088,7 @@ def drive_trainer(cfg, composite, card: str, here: Path, work: Path,
     full width: run A straight to TRAINER_STEPS, run B to half of it, then
     ``--resume`` to TRAINER_STEPS; then ``apps.eval.main`` on A. Each run
     is driven with the kernels' counts set to 0 just before and read just
-    after. Checkpoints go to ``work``/A and ``work``/B. Returns (K1, K2)
+    after. Checkpoints go to ``work``/A and ``work``/B. Returns (K1, K2, E)
     launches of run A."""
     from mipnerf360_torch import native
     from mipnerf360_torch.apps import eval as eval_app
@@ -974,7 +1123,7 @@ def drive_trainer(cfg, composite, card: str, here: Path, work: Path,
             start = max(r["step"] for r in _metric_records(ckpt))
         return _drive(f"trainer run {name} (steps {start} -> {steps})",
                       composite, expected(start, steps),
-                      lambda: train_app.main(argv))
+                      lambda: train_app.main(argv), cfg.model)
 
     def same_state(a, b) -> bool:
         tensors = lambda s: leaves(s.params) + [
@@ -1156,8 +1305,8 @@ def drive_garden(composite, card: str, work: Path, step_rays_per_s: float):
     ``apps.train`` (run A: host staging, as stage_mode=auto picks for this
     bank; run B: the first GARDEN_BANK_STEPS with the bank on the card),
     ``apps.eval --lpips`` on every held-out view, and ``apps.video --depth
-    --normals`` on the spherified orbit. Returns ({path: (K1, K2)}, (rendered view 0 at
-    random init, its target), the random LPIPS weights)."""
+    --normals`` on the spherified orbit. Returns ({path: (K1, K2, E)}, (rendered view 0
+    at random init, its target), the random LPIPS weights)."""
     import resource
 
     from mipnerf360_torch.apps import eval as eval_app
@@ -1225,7 +1374,8 @@ def drive_garden(composite, card: str, work: Path, step_rays_per_s: float):
         f"init, chunk {cfg.train.eval_image_chunk}", composite,
         (2 * n_chunks, 0),
         lambda: render_image(params, mcfg, init_rays,
-                             chunk=cfg.train.eval_image_chunk, device="cuda"))
+                             chunk=cfg.train.eval_image_chunk, device="cuda"),
+        mcfg)
     views = (-1, test.h, test.w, 3)
     rgb = rgb.cpu().numpy().reshape(views)
     targets = test.pixels.reshape(views)[init_views]
@@ -1256,7 +1406,7 @@ def drive_garden(composite, card: str, work: Path, step_rays_per_s: float):
         _, got, wall = _drive(
             f"garden trainer run {name} (steps 0 -> {steps})", composite,
             _trainer_launches(cfg, every, test, 0, steps),
-            lambda: train_app.main(argv))
+            lambda: train_app.main(argv), mcfg)
         recs = _metric_records(ckpt)
         staging = [r for r in recs if "data/device_bank" in r][0]
         print(f"garden trainer run {name}: staging "
@@ -1309,7 +1459,7 @@ def drive_garden(composite, card: str, work: Path, step_rays_per_s: float):
         "held-out views", composite,
         (2 * test.n_images * chunks_per_view, 0),
         lambda: eval_app.main(["--ckpt", str(dir_a), "--lpips", str(npz),
-                               "--device", "cuda"]))
+                               "--device", "cuda"]), mcfg)
     eval_psnr = float(np.mean(
         [summary["per_view_psnr"][v] for v in init_views]))
     print(f"garden eval of run A (step {summary['step']}): mean PSNR "
@@ -1330,7 +1480,7 @@ def drive_garden(composite, card: str, work: Path, step_rays_per_s: float):
         composite, (2 * GARDEN_VIDEO_POSES * chunks_per_view, 0),
         lambda: video_app.main([
             "--ckpt", str(dir_a), "--depth", "--normals", "--device", "cuda",
-            "--set", f"data.n_render_poses={GARDEN_VIDEO_POSES}"]))
+            "--set", f"data.n_render_poses={GARDEN_VIDEO_POSES}"]), mcfg)
     _check_video(video, GARDEN_VIDEO_POSES, (GARDEN_H, GARDEN_W), "garden",
                  card)
     rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
@@ -1361,7 +1511,7 @@ def drive_lego(composite, card: str, work: Path):
     """Phase 10: ``blender_lego_quality`` at full width on a Blender-layout
     capture: ``apps.train`` for LEGO_STEPS steps, then ``apps.video`` on
     LEGO_VIDEO_POSES poses of the synthesized 800x800 render path. Returns
-    {path: (K1, K2)}."""
+    {path: (K1, K2, E)}."""
     from mipnerf360_torch.apps import train as train_app
     from mipnerf360_torch.apps import video as video_app
     from mipnerf360_torch.config import get_config
@@ -1387,7 +1537,7 @@ def drive_lego(composite, card: str, work: Path):
         f"lego trainer (blender_lego_quality, factor {cfg.data.factor}, "
         f"steps 0 -> {LEGO_STEPS})", composite,
         _trainer_launches(cfg, every, test, 0, LEGO_STEPS),
-        lambda: train_app.main(argv))
+        lambda: train_app.main(argv), cfg.model)
     recs = _metric_records(ckpt)
     staging = [r for r in recs if "data/device_bank" in r][0]
     losses = [(r["step"], r["train/loss"]) for r in recs if "train/loss" in r]
@@ -1408,7 +1558,7 @@ def drive_lego(composite, card: str, work: Path):
         (2 * LEGO_VIDEO_POSES * chunks, 0),
         lambda: video_app.main([
             "--ckpt", str(ckpt), "--device", "cuda",
-            "--set", f"data.n_render_poses={LEGO_VIDEO_POSES}"]))
+            "--set", f"data.n_render_poses={LEGO_VIDEO_POSES}"]), cfg.model)
     _check_video(video, LEGO_VIDEO_POSES,
                  (cfg.data.render_h, cfg.data.render_w), "lego", card)
     return {"lego_trainer": launches_train, "lego_video": launches_video}
@@ -1418,20 +1568,20 @@ def drive_small(composite, card: str, work: Path, lpips_view, weights):
     """Phase 11: ``apps.video`` on phase 8's run A (the synthetic render
     split), the port's PNG decoder against the loaders' reader on garden
     views, LPIPS on the card against the CPU on one garden view, and
-    ``checkify_fn`` on the card. Returns {path: (K1, K2)}."""
+    ``checkify_fn`` on the card. Returns {path: (K1, K2, E)}."""
     from mipnerf360_torch import native
     from mipnerf360_torch.apps import video as video_app
     from mipnerf360_torch.config import get_config
     from mipnerf360_torch.utils.checks import NonFiniteError, checkify_fn
     from mipnerf360_torch.utils.lpips import lpips
 
-    data = get_config("synthetic_quality").data
-    n, res = data.synthetic_views, data.synthetic_resolution
+    cfg = get_config("synthetic_quality")
+    n, res = cfg.data.synthetic_views, cfg.data.synthetic_resolution
     video, launches, _ = _drive(
         f"synthetic apps.video on phase 8's run A, {n} poses", composite,
         (2 * n * -(-res * res // 8192), 0),
         lambda: video_app.main(["--ckpt", str(work / "A"), "--device",
-                                "cuda"]))
+                                "cuda"]), cfg.model)
     _check_video(video, n, (res, res), "synthetic", card)
 
     # The port's own PNG decoder against the reader the loaders used, on
@@ -1506,19 +1656,19 @@ def _parallel_batch(cfg, n: int):
 
 
 def _counted(composite, fn):
-    """(fn(), (K1, K2) launches of this process during it, wall s)."""
-    composite.launches = composite.bwd_launches = 0
+    """(fn(), (K1, K2, {E1, E2, E3}) launches of this process during it,
+    wall s)."""
+    _zero_counts(composite)
     t0 = time.perf_counter()
     out = fn()
     torch.cuda.synchronize()
-    return out, (composite.launches, composite.bwd_launches), \
-        time.perf_counter() - t0
+    return out, _read_counts(composite), time.perf_counter() - t0
 
 
 def _worker_12a(out: Path, argv: list) -> None:
     """Phase 12a's rank (under torchrun): ``apps.train.main(argv +
     ["--multihost"])``; writes the process group's backend and world size
-    (read as the trainer leaves the group) and the run's K1 and K2
+    (read as the trainer leaves the group) and the run's K1, K2 and E1-E3
     launches."""
     import torch.distributed as dist
 
@@ -1533,9 +1683,9 @@ def _worker_12a(out: Path, argv: list) -> None:
         return leave(*args, **kwargs)
 
     dist.destroy_process_group = destroy
-    _, (k1, k2), wall = _counted(composite,
-                                 lambda: train_app.main(argv + ["--multihost"]))
-    out.write_text(json.dumps(dict(seen, k1=k1, k2=k2, wall=wall)))
+    _, (k1, k2, e), wall = _counted(
+        composite, lambda: train_app.main(argv + ["--multihost"]))
+    out.write_text(json.dumps(dict(seen, k1=k1, k2=k2, e=e, wall=wall)))
 
 
 def _worker_12b(out_dir: Path, backend: str) -> None:
@@ -1592,7 +1742,7 @@ def _worker_12b(out_dir: Path, backend: str) -> None:
         (s, _), launches, wall = _counted(
             composite, lambda: joint_cadence_step(cfg, s, r, p, mesh=mesh))
         res[f"{name}_step"] = dict(
-            k1=launches[0], k2=launches[1], s=wall,
+            k1=launches[0], k2=launches[1], e=launches[2], s=wall,
             sha256=_params_sha256(gather_state(mesh, s).params))
         del s, grads, full
 
@@ -1611,7 +1761,8 @@ def _worker_12b(out_dir: Path, backend: str) -> None:
             device="cuda"))
         if not all(x.is_cuda for x in out):
             _fail(f"12b {name}: rank {rank} rendered off the card")
-        res[name] = dict(k1=launches[0], k2=launches[1], s=wall)
+        res[name] = dict(k1=launches[0], k2=launches[1], e=launches[2],
+                         s=wall)
         arrays[name] = torch.cat([out[0], out[1][:, None], out[2][:, None]],
                                  -1).cpu().numpy()
     (out_dir / f"rank{rank}.json").write_text(json.dumps(res))
@@ -1689,7 +1840,7 @@ def drive_parallel(cfg, card: str, here: Path, work: Path, render_ref,
     """Phase 12: the parallel layer on the card. 12a: ``apps.train
     --multihost`` under torchrun at world size 1 over NCCL, against phase
     8's run A. 12b: two gloo ranks sharing the card, each check against
-    the one-process result on the card. Returns {path: (K1, K2)}."""
+    the one-process result on the card. Returns {path: (K1, K2, E)}."""
     every = _cadences(cfg, TRAINER_SETS)
     ckpt = work / "P12a"
     argv = ["--preset", "synthetic_quality",
@@ -1725,6 +1876,11 @@ def drive_parallel(cfg, card: str, here: Path, work: Path, render_ref,
         _fail("12a's losses disagree with phase 8's run A")
     if (seen["k1"], seen["k2"]) != want:
         _fail(f"12a launched K1 {seen['k1']} and K2 {seen['k2']} times")
+    e_want = _epilogue_want(cfg.model, *want)
+    print(f"parallel 12a: MLP epilogue launches {seen['e']} (expected "
+          f"{e_want})", flush=True)
+    if seen["e"] != e_want:
+        _fail(f"12a launched {seen['e']}, expected {e_want}")
     clean = _clean_chunks(rec, every)
     clean = [(s, v) for s, v in clean if s > every["log_every"]]
     clean_a = _clean_chunks(_metric_records(work / "A"), every)
@@ -1734,7 +1890,8 @@ def drive_parallel(cfg, card: str, here: Path, work: Path, render_ref,
           f"{rays_a:.0f} ({clean[-1][1] / rays_a:.3f}x) and the bare step's "
           f"{step_rays_per_s:.0f}; on {card}", flush=True)
 
-    paths = {"parallel_12a_trainer_nccl_1rank": (seen["k1"], seen["k2"])}
+    paths = {"parallel_12a_trainer_nccl_1rank": (seen["k1"], seen["k2"],
+                                                 seen["e"])}
     paths.update(_drive_ranks(cfg, here, work, render_ref, 2, "gloo"))
     return paths
 
@@ -1743,7 +1900,7 @@ def _drive_ranks(cfg, here: Path, work: Path, render_ref, nproc: int,
                  backend: str) -> dict:
     """Phase 12b on ``nproc`` ranks over ``backend`` (gloo: the ranks share
     cuda:0; NCCL: one card each), every check against the one-process
-    result on the card. Returns {path: (K1, K2)} per rank."""
+    result on the card. Returns {path: (K1, K2, E)} per rank."""
     refs = {name: _one_process_grads(cfg, n) for name, n in
             (("dp", PARALLEL_DP_BATCH), ("tp", PARALLEL_TP_BATCH))}
     torch.cuda.empty_cache()
@@ -1762,6 +1919,9 @@ def _drive_ranks(cfg, here: Path, work: Path, render_ref, nproc: int,
           f"{sorted({r['device'] for r in ranks})}, {wall:.1f} s with "
           f"start-up ({how})", flush=True)
     tag = f"parallel_12b_{backend}{nproc}"
+    # E is checked where the path keeps one process's MLPs: the
+    # data-parallel step and render (no tensor-parallel group)
+    e_want = {"dp": _epilogue_want(cfg.model, 2, 2)}
     layouts = {"dp": f"data={nproc}", "tp": f"data={nproc // 2}, model=2",
                "render_dp": f"data={nproc}",
                "render_samples": f"data={nproc // 2}, sample_shards=2"}
@@ -1788,7 +1948,9 @@ def _drive_ranks(cfg, here: Path, work: Path, render_ref, nproc: int,
               f"{worst:.3e} (<= {PARALLEL_GRAD_REL_L2}); params after the "
               f"step {'bit-identical' if len(digests) == 1 else 'DIFFERENT'}"
               f" on all {nproc} ranks; per rank K1/K2 launches "
-              f"{[(s['k1'], s['k2']) for s in steps]} (expected 2/2), "
+              f"{[(s['k1'], s['k2']) for s in steps]} (expected 2/2), MLP "
+              f"epilogue {[s['e'] for s in steps]} (expected "
+              f"{e_want.get(name, 'unchecked')}), "
               f"{[round(s['s'], 3) for s in steps]} s", flush=True)
         if len(digests) != 1:
             _fail(f"12b {name}: the ranks' params differ after the step")
@@ -1796,8 +1958,12 @@ def _drive_ranks(cfg, here: Path, work: Path, render_ref, nproc: int,
             if (st["k1"], st["k2"]) != (2, 2):
                 _fail(f"12b {name}: rank {r} launched K1 {st['k1']} and K2 "
                       f"{st['k2']} times in the step")
-            paths[f"{tag}_{name}_step_rank{r}"] = (st["k1"], st["k2"])
+            if name in e_want and st["e"] != e_want[name]:
+                _fail(f"12b {name}: rank {r} launched {st['e']} in the step")
+            paths[f"{tag}_{name}_step_rank{r}"] = (st["k1"], st["k2"],
+                                                   st["e"])
     n_chunks = -(-render_ref.shape[0] // RENDER_CHUNK)
+    e_want["render_dp"] = _epilogue_want(cfg.model, 2 * n_chunks, 0)
     for name, per_chunk in (("render_dp", 2), ("render_samples", 1)):
         diff = np.abs(got[name] - render_ref)
         ok = np.allclose(got[name], render_ref, **PARALLEL_BF16)
@@ -1807,13 +1973,17 @@ def _drive_ranks(cfg, here: Path, work: Path, render_ref, nproc: int,
               f"max_abs_err {diff.max():.3e} (rtol/atol "
               f"{PARALLEL_BF16['rtol']}) {'ok' if ok else 'MISMATCH'}; per "
               f"rank K1/K2 launches {counts} (expected {per_chunk * n_chunks}"
-              f"/0), {[round(r[name]['s'], 3) for r in ranks]} s", flush=True)
+              f"/0), MLP epilogue {[r[name]['e'] for r in ranks]} (expected "
+              f"{e_want.get(name, 'unchecked')}), "
+              f"{[round(r[name]['s'], 3) for r in ranks]} s", flush=True)
         if not ok or not np.isfinite(got[name]).all():
             _fail(f"12b {name} disagrees with phase 4's render")
         for r, c in enumerate(counts):
             if c != (per_chunk * n_chunks, 0):
                 _fail(f"12b {name}: rank {r} launched K1/K2 {c}")
-            paths[f"{tag}_{name}_rank{r}"] = c
+            if name in e_want and ranks[r][name]["e"] != e_want[name]:
+                _fail(f"12b {name}: rank {r} launched {ranks[r][name]['e']}")
+            paths[f"{tag}_{name}_rank{r}"] = (*c, ranks[r][name]["e"])
     return paths
 
 
@@ -1858,7 +2028,7 @@ def drive_tools(composite, card: str, here: Path,
                 step_rays_per_s: float) -> dict:
     """Phase 13: the port's measuring layer through its entry points on the
     card, each path with the kernels' counts set to 0 just before it and
-    read just after. Returns {path: (K1, K2)}."""
+    read just after. Returns {path: (K1, K2, E)}."""
     from mipnerf360_torch.tools import ab_step, bench, profile_step
 
     t_start = time.perf_counter()
@@ -1958,7 +2128,7 @@ def _finite(tree) -> bool:
 def drive_quality(composite, card: str, here: Path) -> dict:
     """Phase 14: the quality layer through ``parity_psnr.run`` on the card,
     each run with the kernels' counts set to 0 just before it and read just
-    after. Returns {path: (K1, K2)}."""
+    after. Returns {path: (K1, K2, E)}."""
     from mipnerf360_torch.data import get_dataset
     from mipnerf360_torch.tools import parity_psnr as pp
     from mipnerf360_torch.train import init_train_state
@@ -2092,7 +2262,7 @@ def _spike_synthetic(b: int, n: int, seed: int):
 def drive_spike(composite, card: str, here: Path) -> dict:
     """Phase 15: K1 and K2 in the spike regime of the proposal-distillation
     loss, and the distillation part of the step on the card's spike rays,
-    card against CPU. Returns {path: (K1, K2)}."""
+    card against CPU. Returns {path: (K1, K2, E)}."""
     from mipnerf360_torch.losses.distillation import distillation_loss
 
     t_start = time.perf_counter()
@@ -2179,8 +2349,8 @@ def drive_spike(composite, card: str, here: Path) -> dict:
 
 def _worker_16(counts: Path, argv: list) -> None:
     """Phase 16's ``python`` shim: ``-m MODULE ARGS`` runs MODULE as
-    ``__main__`` in this process, then appends its K1 and K2 launches to
-    ``counts`` (one JSON line per module)."""
+    ``__main__`` in this process, then appends its K1, K2 and E1-E3
+    launches to ``counts`` (one JSON line per module)."""
     import runpy
 
     from mipnerf360_torch.ops import composite
@@ -2189,13 +2359,14 @@ def _worker_16(counts: Path, argv: list) -> None:
         raise SystemExit(f"phase 16's python shim runs `-m MODULE ...`, "
                          f"got {argv}")
     sys.argv = [argv[1], *argv[2:]]
-    composite.launches = composite.bwd_launches = 0
+    _zero_counts(composite)
     runpy.run_module(argv[1], run_name="__main__", alter_sys=True)
     if torch.cuda.is_initialized():
         torch.cuda.synchronize()
+    k1, k2, e = _read_counts(composite)
     with open(counts, "a") as f:
-        f.write(json.dumps({"module": argv[1], "k1": composite.launches,
-                            "k2": composite.bwd_launches}) + "\n")
+        f.write(json.dumps({"module": argv[1], "k1": k1, "k2": k2, "e": e})
+                + "\n")
 
 
 def _run_logged(cmd: list, here: Path, log: Path, env=None) -> float:
@@ -2224,7 +2395,7 @@ def _run_logged(cmd: list, here: Path, log: Path, env=None) -> float:
 def drive_demo(card: str, here: Path, init_psnr: float) -> dict:
     """Phase 16: ``demo_synthetic.sh`` under bash and ``tools.scaling
     --device cuda`` on the card, each in processes of their own whose
-    launches are read from what they write. Returns {path: (K1, K2)}."""
+    launches are read from what they write. Returns {path: (K1, K2, E)}."""
     import os
 
     from mipnerf360_torch.apps.video import written_frames
@@ -2263,15 +2434,19 @@ def drive_demo(card: str, here: Path, init_psnr: float) -> dict:
                 "mipnerf360_torch.apps.eval": (per_view * test.n_images, 0),
                 "mipnerf360_torch.apps.video": (per_view * poses, 0)}
         got = {r["module"]: (r["k1"], r["k2"]) for r in runs}
+        e_got = {r["module"]: r["e"] for r in runs}
+        e_want = {m: _epilogue_want(cfg.model, *k) for m, k in want.items()}
         print(f"demo: demo_synthetic.sh STEPS={DEMO_STEPS} "
               f"{' '.join(DEMO_SETS)} in {wall:.1f} s (three processes); "
               + "; ".join(f"{m.split('.')[-1]} K1 {k[0]}, K2 {k[1]} "
-                          f"(expected {want.get(m)})" for m, k in got.items()),
-              flush=True)
-        if got != want:
-            _fail(f"demo: launches {got}, expected {want}")
+                          f"(expected {want.get(m)}), MLP epilogue "
+                          f"{e_got[m]} (expected {e_want.get(m)})"
+                          for m, k in got.items()), flush=True)
+        if got != want or e_got != e_want:
+            _fail(f"demo: launches {got} and {e_got}, expected {want} and "
+                  f"{e_want}")
         for m, k in got.items():
-            paths[f"demo_synthetic_{m.split('.')[-1]}"] = k
+            paths[f"demo_synthetic_{m.split('.')[-1]}"] = (*k, e_got[m])
 
         summary = json.loads((ckpt / "test" / "eval.json").read_text())
         frames = written_frames(str(ckpt / "video.mp4"))
@@ -2311,7 +2486,8 @@ def drive_demo(card: str, here: Path, init_psnr: float) -> dict:
             if got != want or r["card"] != card:
                 _fail(f"scaling: world {world} launched {got}, expected "
                       f"{want}, on {r['card']}")
-            paths[f"scaling_world{world}_rank0"] = got
+            # tools.scaling reports K1 and K2 alone
+            paths[f"scaling_world{world}_rank0"] = (*got, None)
         if sorted(rows) != [1, 2] or not all(
                 np.isfinite(r["losses"] + r["first_losses"]).all()
                 for r in rows.values()):
@@ -2388,7 +2564,7 @@ def drive_new_paths(composite, card: str, here: Path) -> dict:
                 composite,
                 _trainer_launches(cfg, _cadences(cfg, sets), test, 0,
                                   NEW_STEPS),
-                lambda: train_app.main(argv))
+                lambda: train_app.main(argv), cfg.model)
             paths[f"{tag}_trainer"] = launches
             losses = [r["train/loss"] for r in _metric_records(ckpt)
                       if "train/loss" in r]
@@ -2405,7 +2581,7 @@ def drive_new_paths(composite, card: str, here: Path) -> dict:
                 composite, (2 * NEW_POSES * chunks, 0),
                 lambda: video_app.main([
                     "--ckpt", str(ckpt), "--device", "cuda",
-                    "--set", f"data.n_render_poses={NEW_POSES}"]))
+                    "--set", f"data.n_render_poses={NEW_POSES}"]), cfg.model)
             _check_video(video, NEW_POSES, (NEW_RES, NEW_RES), tag, card)
             paths[f"{tag}_video"] = launches
 
@@ -2503,6 +2679,7 @@ def main() -> int:
     scratch = torch.empty(FLUSH_BYTES // 4, device="cuda")
     k1 = check_k1(composite, floor_ms, scratch.zero_)
     k2 = check_k2(composite, floor_ms, scratch.zero_)
+    epilogue = check_mlp_epilogue(floor_ms, scratch.zero_)
     del scratch
 
     # Phase 4: full-width render of the held-out views.
@@ -2519,11 +2696,17 @@ def main() -> int:
     n_rays = test.n_rays
     n_chunks = -(-n_rays // RENDER_CHUNK)
 
-    composite.launches = composite.bwd_launches = 0
+    _zero_counts(composite)
     rgb, distance, acc = render_image(params, mcfg, test.rays,
                                       chunk=RENDER_CHUNK, device="cuda")
     torch.cuda.synchronize()
-    k1_render, k2_render = composite.launches, composite.bwd_launches
+    render_counts = _read_counts(composite)
+    k1_render, k2_render, e_render = render_counts
+    e_want = _epilogue_want(mcfg, 2 * n_chunks, 0)
+    print(f"render: MLP epilogue launches {e_render} (expected {e_want})",
+          flush=True)
+    if e_render != e_want:
+        _fail(f"render launched {e_render}, expected {e_want}")
     print(f"render: {test.n_images} views {test.h}x{test.w}, {n_rays} rays, "
           f"{n_chunks} chunks of {RENDER_CHUNK}; K1 launches {k1_render} "
           f"(expected {2 * n_chunks}), K2 launches {k2_render} (expected 0)",
@@ -2571,7 +2754,7 @@ def main() -> int:
                              "synthetic_quality")
 
     # Phase 6 and 7: the train path at full width, then card against CPU.
-    k1_train, k2_train, step_rays_per_s, trace = drive_train(
+    train_counts, step_rays_per_s, trace = drive_train(
         cfg, composite, card, profile_dir)
     check_train_card_vs_cpu(cfg)
     for k, key in ((k1, "composite_fwd"), (k2, "composite_bwd")):
@@ -2616,7 +2799,7 @@ def main() -> int:
     paths.update(drive_demo(card, here, init_psnr))
     # Phase 17: the NDC path, the spiral and the spherified render paths.
     paths.update(drive_new_paths(composite, card, here))
-    paths = {"render": (k1_render, k2_render), "train": (k1_train, k2_train),
+    paths = {"render": render_counts, "train": train_counts,
              "trainer": trainer, **paths}
 
     def entry(name, replaces, k, by_path):
@@ -2638,6 +2821,23 @@ def main() -> int:
         entry("K2_composite_bwd", "mipnerf360_tpu/ops/pallas/composite.py:59",
               k2, {name: k[1] for name, k in paths.items()}),
     ]}
+
+    def epilogue_entry(name, key):
+        by_path = {path: k[2][key] for path, k in paths.items()
+                   if k[2] is not None}
+        return {"name": name, "route": "cuda",
+                "source": "mipnerf360_torch/csrc/mlp_epilogue.cu",
+                "replaces": None, "result": "ok",
+                "launches": sum(by_path.values()),
+                "launches_by_path": by_path,
+                "not_counted": [p for p, k in paths.items() if k[2] is None],
+                "times": {shape: t for shape, t in epilogue.items()
+                          if shape.startswith(key)}}
+
+    record["kernels"] += [
+        epilogue_entry("E1_mlp_bias_relu", "E1"),
+        epilogue_entry("E2_mlp_relu_bwd", "E2"),
+        epilogue_entry("E3_mlp_heads_relu_bwd", "E3")]
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

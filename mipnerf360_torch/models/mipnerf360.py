@@ -34,7 +34,8 @@ from ..parallel.collectives import gather_cat
 from ..parallel.mesh import make_mesh, rank_device
 from ..parallel.sample_axis import make_sample_sharded_composite
 from ..utils.trace import span
-from .mlp import apply_mlp, init_mlp
+from .mlp import (ACTIVATIONS, apply_mlp, fused_relu_stack, init_mlp,
+                  relu_stack_heads)
 
 Params = Dict[str, Any]
 
@@ -182,12 +183,24 @@ def nerf_forward(params: Params, cfg: ModelConfig, rays: Rays, t_vals, weights,
     x = _encode(cfg, rays, new_t)
     dt = _compute_dtype(cfg)
 
+    density_act = "sigmoid" if cfg.density_head_sigmoid else "none"
+
     def tower(nerf, x):
+        heads = [nerf["density"]["layers"], nerf["rgb"]["layers"]]
+        if all(len(h) == 1 for h in heads):
+            heads = [h[0] for h in heads]
+            if fused_relu_stack(x, dt, tp_group, nerf["trunk"]["layers"],
+                                _trunk_activations(cfg), heads):
+                # the trunk's last output feeds only the heads: one bf16
+                # copy of it; the heads' gradients meet in f32 in the stack
+                with span("model.mlp"):
+                    y_density, y_rgb = relu_stack_heads(
+                        nerf["trunk"]["layers"], heads, x, split=True)
+                    return (ACTIVATIONS[density_act](y_density),
+                            torch.sigmoid(y_rgb))
         feat = apply_mlp(nerf["trunk"], x, _trunk_activations(cfg), dt,
                          tp_group=tp_group)
-        raw_density = apply_mlp(
-            nerf["density"], feat,
-            ["sigmoid" if cfg.density_head_sigmoid else "none"], dt)
+        raw_density = apply_mlp(nerf["density"], feat, [density_act], dt)
         raw_rgb = apply_mlp(nerf["rgb"], feat, ["sigmoid"], dt)
         return raw_density, raw_rgb
 

@@ -164,7 +164,10 @@ class TrunkTap:
 
     A layer's pre-activation is ``apply_linear``'s f32 result; its output
     the next layer's input (the last layer's: ``apply_mlp``'s result).
-    ``keep``: also keep the trunk's input and each layer's output."""
+    ``keep``: also keep the trunk's input and each layer's output. While
+    the tap is on, the tower takes that layer-by-layer chain on the card
+    too, not the fused stack (``models/mlp.py::relu_stack_heads``), whose
+    values are the same and whose layers no wrapper sees."""
 
     def __init__(self, nerf, density_bias: float, keep: bool = False):
         self.nerf, self.density_bias, self.keep = nerf, density_bias, keep
@@ -215,11 +218,14 @@ class TrunkTap:
                                     model_mod._softplus(z))}
             return out
 
+        orig_fused = model_mod.fused_relu_stack
         mlp.apply_linear, model_mod.apply_mlp = linear, apply_mlp
+        model_mod.fused_relu_stack = lambda *args: False
         try:
             yield self
         finally:
             mlp.apply_linear, model_mod.apply_mlp = orig_linear, orig_mlp
+            model_mod.fused_relu_stack = orig_fused
 
     def stats(self) -> dict:
         return {"trunk": list(self.trunk), "density_head": self.head,

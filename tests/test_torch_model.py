@@ -88,6 +88,73 @@ def test_apply_mlp_matches_jax(dtype):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **tol)
 
 
+def _rel_l2(got, want):
+    want = np.asarray(want)
+    return np.linalg.norm(got - want) / max(np.linalg.norm(want), 1e-12)
+
+
+@pytest.mark.parametrize("stack", ["proposal", "trunk_and_heads"])
+def test_fused_relu_stack_matches_jax(stack):
+    """``models/mlp.py::relu_stack_heads``, the card's MLP in bf16 (here
+    with the plain versions of its epilogue kernels, E1-E3), against the
+    JAX package's ``apply_mlp`` on the same params and inputs: a proposal
+    MLP (4 ReLU layers of 256, one output), and a NeRF trunk (3 ReLU
+    layers) with its density and rgb heads on the trunk's output. Outputs
+    at BF16_TOL; the gradients of x and of every w and b by relative L2 at
+    5e-2 (tests/test_torch_train.py::test_joint_step_bf16_matches_jax_loosely:
+    dX and dW are rounded to bf16 in the backward)."""
+    keys = jax.random.split(jax.random.PRNGKey(7), 3)
+    if stack == "proposal":
+        mlps = [jmlp.init_mlp(keys[0], [58, 256, 256, 256, 256, 1])]
+        acts = [["relu"] * 4 + ["none"]]
+    else:
+        mlps = [jmlp.init_mlp(keys[0], [58, 128, 128, 128]),
+                jmlp.init_mlp(keys[1], [128, 1]),
+                jmlp.init_mlp(keys[2], [128, 3])]
+        acts = [["relu"] * 3, ["none"], ["none"]]
+    rng = np.random.default_rng(7)
+    x = rng.normal(size=(4, 16, 58)).astype(np.float32)
+    widths = [m["layers"][-1]["w"].shape[-1] for m in mlps[-2:]]
+    r = [rng.normal(size=(4, 16, k)).astype(np.float32)
+         for k in (widths[-1:] if stack == "proposal" else widths)]
+
+    def j_outs(params, xx):
+        if stack == "proposal":
+            return [jmlp.apply_mlp(params[0], xx, acts[0], jnp.bfloat16)]
+        feat = jmlp.apply_mlp(params[0], xx, acts[0], jnp.bfloat16)
+        return [jmlp.apply_mlp(p, feat, a, jnp.bfloat16)
+                for p, a in zip(params[1:], acts[1:])]
+
+    def j_loss(params, xx):
+        return sum(jnp.sum(o * ri) for o, ri in zip(j_outs(params, xx), r))
+
+    want = j_outs(mlps, jnp.asarray(x))
+    want_g = jax.grad(j_loss, argnums=(0, 1))(mlps, jnp.asarray(x))
+    want_leaves = [want_g[1]] + [
+        lay[k] for m in want_g[0] for lay in m["layers"] for k in ("w", "b")]
+
+    tparams = [interop.params_from_jax(jax.tree.map(np.asarray, m))
+               for m in mlps]
+    layers = [{k: v.requires_grad_() for k, v in lay.items()}
+              for m in tparams for lay in m["layers"]]
+    tx = torch.from_numpy(x).requires_grad_()
+    if stack == "proposal":
+        outs = tmlp.relu_stack_heads(layers[:-1], layers[-1:], tx, split=False)
+    else:
+        outs = tmlp.relu_stack_heads(layers[:-2], layers[-2:], tx, split=True)
+    loss = sum((o * torch.from_numpy(ri)).sum() for o, ri in zip(outs, r))
+    got_leaves = torch.autograd.grad(
+        loss, [tx] + [lay[k] for lay in layers for k in ("w", "b")])
+
+    for o, w in zip(outs, want):
+        assert o.dtype == torch.float32
+        np.testing.assert_allclose(o.detach().numpy(), np.asarray(w),
+                                   **BF16_TOL)
+    assert len(got_leaves) == len(want_leaves)
+    for i, (g, w) in enumerate(zip(got_leaves, want_leaves)):
+        assert _rel_l2(g.numpy(), w) < 5e-2, (i, _rel_l2(g.numpy(), w))
+
+
 def test_apply_linear_bf16_keeps_the_f32_product():
     """bf16 operands, f32 product and bias: no rounding before the bias."""
     params = jmlp.init_mlp(jax.random.PRNGKey(1), [40, 24])
