@@ -26,6 +26,9 @@ port's two paths at the full width of the ``synthetic_quality`` preset:
   weights) on every held-out view, which must beat the random-init PSNR on
   the same views, and ``apps.video --depth --normals`` on the spherified
   orbit;
+- ``garden_paper`` (the published network) on that capture: a held-out
+  view at random init, card against CPU on its rays, joint train steps of
+  16,384 rays, ``apps.train``, ``apps.eval`` and ``apps.video``;
 - ``blender_lego_quality`` on an 800x800 RGBA Blender-layout capture:
   ``apps.train`` and ``apps.video`` on the synthesized render path;
 - ``apps.video`` on the synthetic scene's render split, the port's PNG
@@ -69,7 +72,8 @@ port's two paths at the full width of the ``synthetic_quality`` preset:
 Each path runs with the kernels' launch counts set to 0 just before it and
 read just after: K1, K2 and E = {E1, E2, E3}, the MLP epilogue kernels
 (phase 3c's own calls count on no path). Where a path's K1 and K2 count its
-forwards of both levels (two K1 each) and its train steps (two K2 each), E
+forwards of every level (one K1 a proposal round and one on the NeRF
+level) and its train steps (one K2 a level), E
 must follow from them and the path's model (``_epilogue_want``): the train
 step, the renders, the trainers, evals and videos, 12a and the demo; the
 rest report E unchecked, and ``tools.scaling``'s rows carry no E. The card is checked against the CPU on the render (the
@@ -155,6 +159,19 @@ GARDEN_STEPS, GARDEN_BANK_STEPS, GARDEN_VIDEO_POSES = 60, 40, 2
 GARDEN_INIT_STRIDE = 6
 GARDEN_SETS = ["train.log_every=20", "train.eval_every=60",
                "train.eval_image_every=60", "train.lr_max_steps=10000"]
+# Phase 9b: garden_paper (the published network: two proposal rounds of 64,
+# 32 NeRF samples, the trunk's skip, bottleneck and view branch, 16,384 rays
+# a step) on phase 9's capture: one held-out view at random init (card
+# against CPU on PARITY_RAYS of its rays), PAPER_TRAIN_STEPS joint steps of
+# the preset's batch drawn from the held-out rays, ``apps.train`` for
+# PAPER_STEPS steps with host staging and an image eval at its last step,
+# ``apps.eval`` on every held-out view and ``apps.video`` on
+# GARDEN_VIDEO_POSES poses. Each path's K1, K2 and E1-E3 are counted from 0
+# (K1 three times a forward and K2 three times a step; E1 17 a forward, E2
+# 13 and E3 4 a step).
+PAPER_TRAIN_STEPS, PAPER_STEPS = 3, 40
+PAPER_SETS = ["train.log_every=20", "train.eval_every=40",
+              "train.eval_image_every=40", "train.lr_max_steps=10000"]
 # Phase 10: blender_lego_quality at full width on a Blender-layout capture
 # of 800x800 RGBA views (loaded at factor 2, 400x400): lego's 100 train
 # views, its 200 test views cut to 8, LEGO_STEPS steps, and LEGO_VIDEO_POSES
@@ -570,16 +587,21 @@ def check_k2(composite, floor_ms, flush):
 # the proposal's 256. Each is held to its plain version (outputs bit for
 # bit, the bias gradient within EPILOGUE_DB_RTOL of each column's sum of
 # magnitudes) and timed as phase 3 times K1 and K2, with graphs of
-# EPILOGUE_CALLS calls: a call moves ~1-2 GB, far more than L2 holds.
+# EPILOGUE_CALLS calls: a call moves ~1-2 GB, far more than L2 holds. Then
+# the operands the published network adds, at a garden_paper step's NeRF
+# rows (16,384 rays x 32 samples): E1 with a second input at the trunk's
+# skip layer (N = 1024) and at the view layer (N = 128), and E3 split under
+# the density head with the bottleneck's dX (N = 1024).
 EPILOGUE_ROWS = 4096 * 64
+PAPER_ROWS = 16384 * 32
 EPILOGUE_CALLS, EPILOGUE_REPS = 10, 11
 EPILOGUE_DB_RTOL = 1e-6
 
 
 def _epilogue_cases(epi, n: int):
-    """(tag, kernel, plain, args, bytes moved) at [EPILOGUE_ROWS, n]: E1,
-    E2 with one and two dX parts, and E3 as the NeRF tower (two heads of 1
-    and 3 outputs, split) or the proposal (one of 1) takes it."""
+    """(M, N, tag, kernel, plain, args, bytes moved) at [EPILOGUE_ROWS, n]:
+    E1, E2 with one and two dX parts, and E3 as the NeRF tower (two heads
+    of 1 and 3 outputs, split) or the proposal (one of 1) takes it."""
     m = EPILOGUE_ROWS
     gen = torch.Generator("cuda").manual_seed(n)
 
@@ -596,7 +618,7 @@ def _epilogue_cases(epi, n: int):
                       normal(n, k).to(torch.bfloat16)))
     head_bytes = sum(2 * (2 * m * k + n * k) for k in widths)
     dx = [normal(m, n), normal(m, n)]
-    return [
+    return [(m, n) + case for case in [
         ("E1", epi.bias_relu, epi.plain_bias_relu, (normal(m, n), normal(n)),
          6 * m * n + 4 * n),
         ("E2", epi.relu_bwd, epi.plain_relu_bwd, (dx[:1], h),
@@ -606,7 +628,34 @@ def _epilogue_cases(epi, n: int):
         ("E3 split" if split else "E3", epi.heads_relu_bwd,
          epi.plain_heads_relu_bwd, (h, heads, split),
          (6 if split else 4) * m * n + head_bytes + 4 * n),
-    ]
+    ]]
+
+
+def _paper_epilogue_cases(epi):
+    """(M, N, tag, kernel, plain, args, bytes moved) at [PAPER_ROWS, N] of
+    the published network's new operands: E1 with a second f32 input (8
+    bytes read and 2 written an element) at the skip layer's N = 1024 and
+    the view layer's 128; E3 split under the density head (1 output) with
+    the bottleneck's f32 dX (6 read, 4 written)."""
+    m = PAPER_ROWS
+    gen = torch.Generator("cuda").manual_seed(360)
+
+    def normal(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    cases = [(m, n, "E1 second input", epi.bias_relu, epi.plain_bias_relu,
+              (normal(m, n), normal(n), normal(m, n)), 10 * m * n + 4 * n)
+             for n in (1024, 128)]
+    n = 1024
+    h = torch.relu(normal(m, n)).to(torch.bfloat16)
+    g = normal(m, 1)
+    hi = g.to(torch.bfloat16)
+    head = (hi, (g - hi.float()).to(torch.bfloat16),
+            normal(n, 1).to(torch.bfloat16))
+    cases.append((m, n, "E3 split wide head", epi.heads_relu_bwd,
+                  epi.plain_heads_relu_bwd, (h, [head], True, normal(m, n)),
+                  10 * m * n + 2 * (2 * m + n) + 4 * n))
+    return cases
 
 
 def check_mlp_epilogue(floor_ms, flush) -> dict:
@@ -615,10 +664,12 @@ def check_mlp_epilogue(floor_ms, flush) -> dict:
     from mipnerf360_torch.ops import mlp_epilogue as epi
 
     out = {}
-    for n in (1024, 256):
-        for tag, fn, plain, args, nbytes in _epilogue_cases(epi, n):
+    cases = [lambda: _epilogue_cases(epi, 1024), lambda: _epilogue_cases(
+        epi, 256), lambda: _paper_epilogue_cases(epi)]
+    for make in cases:
+        for m, n, tag, fn, plain, args, nbytes in make():
             got, want = fn(*args), plain(*args)
-            if tag == "E1":
+            if tag.startswith("E1"):
                 ok, db_err = torch.equal(got, want), 0.0
             else:
                 (g, db), (g_want, db_want) = got, want
@@ -629,7 +680,7 @@ def check_mlp_epilogue(floor_ms, flush) -> dict:
                 db_err = ((db - db_want).abs() / scale.clamp_min(1e-30)
                           ).max().item()
                 ok = ok and db_err <= EPILOGUE_DB_RTOL
-            print(f"{tag} vs plain M={EPILOGUE_ROWS} N={n}: outputs "
+            print(f"{tag} vs plain M={m} N={n}: outputs "
                   f"{'equal' if ok else 'DIFFER'}, bias gradient within "
                   f"{db_err:.2e} of the column sums of magnitudes", flush=True)
             if not ok:
@@ -641,14 +692,14 @@ def check_mlp_epilogue(floor_ms, flush) -> dict:
             cold_ms, (q1, q3), _ = _cold_ms(lambda: fn(*args), flush,
                                             EPILOGUE_CALLS, EPILOGUE_REPS)
             bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-            print(f"{tag} time M={EPILOGUE_ROWS} N={n}: hot {ms * 1e3:.1f} us,"
+            print(f"{tag} time M={m} N={n}: hot {ms * 1e3:.1f} us,"
                   f" cold {cold_ms * 1e3:.1f} us (quartiles {q1 * 1e3:.1f}-"
                   f"{q3 * 1e3:.1f}), plain {plain_ms * 1e3:.1f} us; bound "
                   f"{bound_ms * 1e3:.1f} us by bytes ({nbytes / 1e9:.3f} GB), "
                   f"{100 * bound_ms / ms:.1f}% of it hot; harness floor "
                   f"{floor_ms * 1e3:.3f} us", flush=True)
-            out[f"{tag} N={n}"] = dict(ms=ms, cold_ms=cold_ms,
-                                       plain_ms=plain_ms, bound_ms=bound_ms)
+            out[f"{tag} M={m} N={n}"] = dict(
+                ms=ms, cold_ms=cold_ms, plain_ms=plain_ms, bound_ms=bound_ms)
     return out
 
 
@@ -669,29 +720,39 @@ def _read_counts(composite) -> tuple:
             dict(mlp_epilogue.launches))
 
 
+def _levels(mcfg) -> int:
+    """K1 launches of a forward, and K2 launches of a train step, on a model
+    ``mcfg``: one per proposal round and one on the NeRF level."""
+    return mcfg.proposal_rounds + 1
+
+
 def _fused_stacks(mcfg) -> list:
-    """The hidden depth of each MLP stack of ``mcfg`` that runs through
-    E1-E3 on the card (``models/mlp.py::fused_relu_stack``): a bf16 model
-    without ``trunk_final_sigmoid`` (which ends the proposal's hidden layers
-    on a sigmoid too), at hidden widths the kernels take."""
+    """The hidden depth of each MLP stack that a forward of ``mcfg`` runs
+    through E1-E3 on the card (``models/mlp.py::fused_relu_stack``): a bf16
+    model without ``trunk_final_sigmoid`` (which ends the proposal's hidden
+    layers on a sigmoid too), at hidden widths the kernels take; the
+    proposal MLP once a round, the trunk, and the view branch's one layer
+    where the model has it."""
     from mipnerf360_torch.ops.mlp_epilogue import takes_width
 
     if mcfg.compute_dtype != "bfloat16" or mcfg.trunk_final_sigmoid:
         return []
-    return [depth for depth, width in (
-        (mcfg.proposal_depth, mcfg.hidden_proposal),
-        (mcfg.nerf_depth, mcfg.hidden_nerf)) if takes_width(width)]
+    return [depth for depth, width, times in (
+        (mcfg.proposal_depth, mcfg.hidden_proposal, mcfg.proposal_rounds),
+        (mcfg.nerf_depth, mcfg.hidden_nerf, 1),
+        (1, mcfg.viewdir_width, int(mcfg.bottleneck_width > 0)))
+        if takes_width(width) for _ in range(times)]
 
 
 def _epilogue_want(mcfg, k1: int, k2: int) -> dict:
     """E1-E3 launches of a path that launches K1 ``k1`` and K2 ``k2`` times
-    on a model ``mcfg``. A forward of both levels (of a train step, an eval
-    batch or a render chunk) launches K1 twice and E1 once per hidden layer
-    of each fused stack; a train step's backward K2 twice, E2 once per
-    hidden layer of each fused stack but its last, and E3 once per fused
-    stack."""
+    on a model ``mcfg``. A forward of every level (of a train step, an eval
+    batch or a render chunk) launches K1 once a level (:func:`_levels`) and
+    E1 once per hidden layer of each fused stack; a train step's backward K2
+    once a level, E2 once per hidden layer of each fused stack but its last,
+    and E3 once per fused stack."""
     stacks = _fused_stacks(mcfg)
-    forwards, steps = k1 // 2, k2 // 2
+    forwards, steps = k1 // _levels(mcfg), k2 // _levels(mcfg)
     return {"E1": forwards * sum(stacks),
             "E2": steps * sum(d - 1 for d in stacks),
             "E3": steps * len(stacks)}
@@ -1032,17 +1093,19 @@ def _cadences(cfg, sets) -> dict:
 
 
 def _trainer_launches(cfg, every: dict, test, start: int, end: int):
-    """K1 and K2 launches of a trainer run from ``start`` to ``end``: two of
-    each per step; two K1 per forward of the eval_every batch, and per
-    render chunk of each view of the image eval (``eval_image_views`` of the
-    ``test`` split's views, all of them when -1)."""
+    """K1 and K2 launches of a trainer run from ``start`` to ``end``: one of
+    each per level (:func:`_levels`) and step; one K1 per level and forward
+    of the eval_every batch, and of each render chunk of each view of the
+    image eval (``eval_image_views`` of the ``test`` split's views, all of
+    them when -1)."""
     crossings = lambda n: (end // n - start // n) if n else 0
     k = cfg.train.eval_image_views
     views = test.n_images if k <= 0 or k >= test.n_images else k
     chunks = -(-test.h * test.w // cfg.train.eval_image_chunk)
-    k1 = (2 * (end - start) + 2 * crossings(every["eval_every"])
-          + 2 * views * chunks * crossings(every["eval_image_every"]))
-    return k1, 2 * (end - start)
+    levels = _levels(cfg.model)
+    k1 = levels * ((end - start) + crossings(every["eval_every"])
+                   + views * chunks * crossings(every["eval_image_every"]))
+    return k1, levels * (end - start)
 
 
 def _drive(label: str, composite, want, fn, mcfg=None):
@@ -1491,6 +1554,152 @@ def drive_garden(composite, card: str, work: Path, step_rays_per_s: float):
                 "garden_trainer_bank": launches_b,
                 "garden_eval": launches_eval, "garden_video": launches_video}
     return launches, lpips_view, weights
+
+
+def drive_garden_paper(composite, card: str, work: Path):
+    """Phase 9b: ``garden_paper`` on phase 9's capture (``work``/garden): a
+    held-out view at random init (card against CPU on PARITY_RAYS of its
+    rays), PAPER_TRAIN_STEPS joint steps of the preset's batch, then
+    ``apps.train`` (host staging), ``apps.eval`` and ``apps.video``. Each
+    path's launches are counted from 0 and checked (:func:`_drive`).
+    Returns {path: (K1, K2, E)}."""
+    from mipnerf360_torch.apps import eval as eval_app
+    from mipnerf360_torch.apps import train as train_app
+    from mipnerf360_torch.apps import video as video_app
+    from mipnerf360_torch.apps.common import apply_overrides
+    from mipnerf360_torch.config import get_config
+    from mipnerf360_torch.core.rays import rays_to_device, take_rays
+    from mipnerf360_torch.data import get_dataset
+    from mipnerf360_torch.models.mipnerf360 import (init_model, map_params,
+                                                    render_image)
+    from mipnerf360_torch.train import init_train_state, make_train_step
+    from mipnerf360_torch.train.state import leaves
+
+    t_start = time.perf_counter()
+    base = [f"data.base_dir={work / 'garden'}"]
+    cfg = apply_overrides(get_config("garden_paper"), base)
+    mcfg, batch = cfg.model, cfg.train.batch_size
+    levels = _levels(mcfg)
+    print(f"model: garden_paper, {mcfg.proposal_rounds} proposal rounds of "
+          f"{mcfg.num_samples} samples through {mcfg.hidden_proposal}x"
+          f"{mcfg.proposal_depth}, {mcfg.nerf_sample_count} NeRF samples, "
+          f"trunk {mcfg.hidden_nerf}x{mcfg.nerf_depth} with its input after "
+          f"layer(s) {mcfg.skip_layers}, bottleneck {mcfg.bottleneck_width}, "
+          f"view layer {mcfg.viewdir_width}, {mcfg.ray_shape} rays, "
+          f"{mcfg.compute_dtype} matmuls, {batch} rays/step; fused stacks "
+          f"of hidden depth {_fused_stacks(mcfg)}", flush=True)
+    test = get_dataset(cfg.data, "test", white_bkgd=mcfg.white_bkgd)
+    hw = test.h * test.w
+    chunks_per_view = -(-hw // cfg.train.eval_image_chunk)
+    params_cpu = init_model(mcfg, torch.Generator().manual_seed(
+        cfg.train.seed))
+    params = map_params(lambda p: p.cuda(), params_cpu)
+    view0 = take_rays(test.rays, np.arange(hw))
+    (rgb, _, _), launches_init, dt = _drive(
+        f"garden_paper render of held-out view 0 at random init, chunk "
+        f"{cfg.train.eval_image_chunk}", composite,
+        (levels * chunks_per_view, 0),
+        lambda: render_image(params, mcfg, view0,
+                             chunk=cfg.train.eval_image_chunk, device="cuda"),
+        mcfg)
+    if not torch.isfinite(rgb).all():
+        _fail("garden_paper render at random init is not finite")
+    idx = np.random.default_rng(10).choice(hw, PARITY_RAYS, replace=False)
+    check_render_card_vs_cpu(mcfg, params_cpu, params, take_rays(view0, idx),
+                             "garden_paper")
+    del params, params_cpu, rgb
+
+    state = init_train_state(mcfg, cfg.train,
+                             generator=torch.Generator().manual_seed(0),
+                             device="cuda")
+    bank = rays_to_device(test.rays, "cuda")
+    bank_pixels = torch.as_tensor(test.pixels, device="cuda")
+    gen = torch.Generator().manual_seed(1)
+    batches = []
+    for _ in range(PAPER_TRAIN_STEPS + 1):
+        i = torch.randint(test.n_rays, (batch,), generator=gen).cuda()
+        batches.append((take_rays(bank, i), bank_pixels[i]))
+    step = make_train_step(cfg)
+    before = [p.detach().clone() for p in leaves(state.params)]
+    torch.cuda.reset_peak_memory_stats()
+    state, _ = step(state, *batches[0])
+    torch.cuda.synchronize()
+    times, auxes = [], []
+
+    def steps():
+        nonlocal state
+        for rays, pixels in batches[1:]:
+            t0 = time.perf_counter()
+            state, aux = step(state, rays, pixels)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            auxes.append(aux)
+
+    _, launches_train, _ = _drive(
+        f"garden_paper {cfg.train.cadence}-cadence train steps x"
+        f"{PAPER_TRAIN_STEPS} of {batch} rays", composite,
+        (levels * PAPER_TRAIN_STEPS, levels * PAPER_TRAIN_STEPS), steps, mcfg)
+    peak = torch.cuda.max_memory_allocated()
+    med = statistics.median(times)
+    print(f"garden_paper train step: median {med * 1e3:.2f} ms/step over "
+          f"{len(times)}, {batch / med:.0f} rays/s; peak device memory "
+          f"{peak / 2**30:.2f} GiB; aux of the last step: " + ", ".join(
+              f"{k}={v.item():.6g}" for k, v in auxes[-1].items())
+          + f"; on {card}", flush=True)
+    if not all(torch.isfinite(v).all() for aux in auxes for v in aux.values()):
+        _fail("garden_paper train step aux not finite")
+    unchanged = [i for i, (a, b) in enumerate(zip(before, leaves(state.params)))
+                 if torch.equal(a, b)]
+    if unchanged:
+        _fail(f"garden_paper param leaves {unchanged} did not change")
+    del state, bank, bank_pixels, batches, before, step
+
+    ckpt = work / "garden_paper"
+    every = _cadences(cfg, PAPER_SETS)
+    argv = ["--preset", "garden_paper", "--device", "cuda",
+            "--set", f"train.checkpoint_dir={ckpt}",
+            "--set", f"train.max_steps={PAPER_STEPS}"]
+    argv += [a for s in base + PAPER_SETS for a in ("--set", s)]
+    torch.cuda.reset_peak_memory_stats()
+    _, launches_trainer, wall = _drive(
+        f"garden_paper apps.train (steps 0 -> {PAPER_STEPS})", composite,
+        _trainer_launches(cfg, every, test, 0, PAPER_STEPS),
+        lambda: train_app.main(argv), mcfg)
+    recs = _metric_records(ckpt)
+    loss = {r["step"]: r["train/loss"] for r in recs if "train/loss" in r}
+    staging = [r for r in recs if "data/device_bank" in r][0]
+    print(f"garden_paper trainer: staging "
+          f"{'device bank' if staging['data/device_bank'] else 'host'}; "
+          f"train/loss by step {loss}; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+          f"{wall:.1f} s", flush=True)
+    if not loss or not all(np.isfinite(v) for v in loss.values()):
+        _fail("garden_paper trainer losses are not finite")
+    summary, launches_eval, wall = _drive(
+        f"garden_paper apps.eval on all {test.n_images} held-out views",
+        composite, (levels * test.n_images * chunks_per_view, 0),
+        lambda: eval_app.main(["--ckpt", str(ckpt), "--device", "cuda"]),
+        mcfg)
+    print(f"garden_paper eval (step {summary['step']}): mean PSNR "
+          f"{summary['mean_psnr']:.3f} dB over {summary['n_views']} views, "
+          f"{test.n_rays / wall:.0f} rays/s over the whole app", flush=True)
+    if (summary["n_views"] != test.n_images
+            or not np.isfinite(summary["mean_psnr"])):
+        _fail("the garden_paper eval did not render every view")
+    video, launches_video, _ = _drive(
+        f"garden_paper apps.video, {GARDEN_VIDEO_POSES} poses", composite,
+        (levels * GARDEN_VIDEO_POSES * chunks_per_view, 0),
+        lambda: video_app.main([
+            "--ckpt", str(ckpt), "--device", "cuda",
+            "--set", f"data.n_render_poses={GARDEN_VIDEO_POSES}"]), mcfg)
+    _check_video(video, GARDEN_VIDEO_POSES, (test.h, test.w), "garden_paper",
+                 card)
+    print(f"garden_paper: phase 9b took {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+    return {"paper_init_render": launches_init,
+            "paper_train": launches_train,
+            "paper_trainer": launches_trainer, "paper_eval": launches_eval,
+            "paper_video": launches_video}
 
 
 def _check_video(video: dict, n_frames: int, hw, tag: str, card: str):
@@ -2779,6 +2988,8 @@ def main() -> int:
         # Phase 9: garden_quality on a capture of garden's size.
         paths, lpips_view, weights = drive_garden(composite, card, work,
                                                   step_rays_per_s)
+        # Phase 9b: garden_paper, the published network, on that capture.
+        paths.update(drive_garden_paper(composite, card, work))
         # Phase 10: blender_lego_quality on a Blender-layout capture.
         paths.update(drive_lego(composite, card, work))
         # Phase 11: the synthetic video, LPIPS and checkify_fn on the card.

@@ -82,13 +82,73 @@ class ModelConfig:
     # see DESIGN.md §7c for the measured verdict.
     pad_input_lanes: bool = False
 
+    # The layout of the published network (Barron et al. 2022; multinerf's
+    # configs/360.gin and its MLP defaults). Every default keeps the repo's
+    # own layout: one proposal round, as many NeRF samples as proposal
+    # samples, no skip, the heads on the trunk, view directions in the
+    # trunk's input. ``garden_paper`` sets all five.
+    # Proposal rounds of ``num_samples`` samples through the one proposal
+    # MLP; each round after the first resamples the previous one's histogram.
+    proposal_rounds: int = 1
+    # Samples of the NeRF level, resampled from the last proposal round's
+    # histogram; 0 = num_samples.
+    nerf_samples: int = 0
+    # 0 = none; k: the trunk's input is concatenated to the output of every
+    # hidden layer i with i % k == 0 and 0 < i < nerf_depth - 1 (multinerf's
+    # skip_layer), so layer i + 1 takes hidden + input features.
+    trunk_skip: int = 0
+    # 0 = the density and rgb heads read the trunk, and the view directions
+    # enter the trunk's input as sines and cosines of their polar angles at
+    # 2^i, 4 features a scale (the repo's). Else the view branch: the trunk
+    # feeds a density head and a linear bottleneck of this width, which,
+    # with the unit view direction and its sines at 2^i and 2^i + pi/2
+    # (3 + 6 features a scale, multinerf's pos_enc with the identity), feeds
+    # one ReLU layer of ``viewdir_width`` and the rgb head.
+    bottleneck_width: int = 0
+    viewdir_width: int = 0
+
+    def __post_init__(self):
+        if (self.viewdir_width > 0) != (self.bottleneck_width > 0):
+            raise ValueError(
+                "the view branch takes bottleneck_width > 0 and viewdir_width "
+                f"> 0 together, or neither; got {self.bottleneck_width}, "
+                f"{self.viewdir_width}")
+        if self.proposal_rounds < 1 or self.nerf_samples < 0 or \
+                self.trunk_skip < 0:
+            raise ValueError("proposal_rounds >= 1, nerf_samples >= 0 and "
+                             "trunk_skip >= 0")
+        if self.trunk_skip and (self.nerf_depth - 1) % self.trunk_skip == 0:
+            raise ValueError(
+                f"trunk_skip={self.trunk_skip} at nerf_depth="
+                f"{self.nerf_depth} would concatenate the input after the last "
+                "trunk layer, into the heads")
+
     @property
     def input_dim(self) -> int:
         # 21*2 IPE features per scale + 4 viewdir scales * 2 angles * 2
-        # (sin,cos); reference hardcodes 58 at model.py:39,127 (one IPE
-        # scale).
-        return (42 * (self.ipe_max_deg - self.ipe_min_deg)
-                + 4 * (self.viewdir_max_deg - self.viewdir_min_deg))
+        # (sin,cos) without the view branch; reference hardcodes 58 at
+        # model.py:39,127 (one IPE scale).
+        view = (0 if self.bottleneck_width
+                else 4 * (self.viewdir_max_deg - self.viewdir_min_deg))
+        return 42 * (self.ipe_max_deg - self.ipe_min_deg) + view
+
+    @property
+    def viewdir_dim(self) -> int:
+        """Features of the view branch's direction encoding (0 without it)."""
+        if not self.bottleneck_width:
+            return 0
+        return 3 + 6 * (self.viewdir_max_deg - self.viewdir_min_deg)
+
+    @property
+    def nerf_sample_count(self) -> int:
+        return self.nerf_samples or self.num_samples
+
+    @property
+    def skip_layers(self) -> tuple:
+        """The trunk layers that take the skip input (0-based)."""
+        k = self.trunk_skip
+        return tuple(i + 1 for i in range(1, self.nerf_depth - 1)
+                     if k and i % k == 0)
 
     @property
     def padded_input_dim(self) -> int:
@@ -96,6 +156,11 @@ class ModelConfig:
         ``pad_input_lanes`` is set, else input_dim itself."""
         d = self.input_dim
         return -(-d // 128) * 128 if self.pad_input_lanes else d
+
+
+# The fields of the published layout, which the JAX package does not have.
+LAYOUT_FIELDS = ("proposal_rounds", "nerf_samples", "trunk_skip",
+                 "bottleneck_width", "viewdir_width")
 
 
 @dataclass(frozen=True)
@@ -234,7 +299,15 @@ class Config:
     preset: str = ""
 
     def to_json(self) -> str:
-        return json.dumps(dataclasses.asdict(self), indent=2)
+        """The config as JSON. The published-layout fields are written only
+        where they differ from their defaults, so the config.json of any
+        other layout is the JAX package's, field for field."""
+        d = dataclasses.asdict(self)
+        default = ModelConfig()
+        for k in LAYOUT_FIELDS:
+            if d["model"][k] == getattr(default, k):
+                del d["model"][k]
+        return json.dumps(d, indent=2)
 
     @staticmethod
     def from_json(s: str) -> "Config":
@@ -410,6 +483,24 @@ def blender_lego_quality() -> Config:
                                eval_image_views=4))
 
 
+def garden_paper() -> Config:
+    """nerf_360 garden with the published Mip-NeRF 360 network and batch.
+
+    ``garden_quality``'s scene, schedule, loss weights, ``density_bias`` and
+    paddings, with the paper's layout (multinerf ``configs/360.gin`` and its
+    ``MLP`` defaults): 12 IPE scales, cone rays, two proposal rounds of 64
+    samples through one 4x256 proposal MLP, 32 NeRF samples, an 8x1024 trunk
+    with the input concatenated after its fifth layer, a density head and a
+    256-wide bottleneck, and the 27-feature unit view-direction encoding
+    into one 128-wide ReLU layer before the rgb head; 2^14 rays a step."""
+    cfg = garden_quality()
+    cfg = dataclasses.replace(cfg, preset="garden_paper")
+    return _replace(cfg, model=dict(
+        ipe_max_deg=12, ray_shape="cone", proposal_rounds=2, nerf_samples=32,
+        trunk_skip=4, bottleneck_width=256, viewdir_width=128),
+        train=dict(batch_size=16384))
+
+
 def llff_fern_quality() -> Config:
     """LLFF fern, NDC-free contract() + quality model (converging preset).
 
@@ -452,6 +543,7 @@ PRESETS = {
     "llff_fern_quality": llff_fern_quality,
     "garden": garden,
     "garden_quality": garden_quality,
+    "garden_paper": garden_paper,
     "synthetic_quality": synthetic_quality,
     "bicycle_multihost": bicycle_multihost,
     "bicycle_multihost_quality": bicycle_multihost_quality,

@@ -10,7 +10,8 @@ from .gaussians import (
     lift_gaussian,
     cast_rays,
 )
-from .encoding import integrated_pos_enc, viewdir_enc, viewdir_enc_dim, P_BASIS, POS_ENC_DIM
+from .encoding import (integrated_pos_enc, viewdir_enc, viewdir_enc_dim,
+                       unit_viewdir_enc, P_BASIS, POS_ENC_DIM)
 from .fused_encode import factored_ipe
 from .sampling import (
     sorted_piecewise_constant_pdf,

@@ -111,3 +111,19 @@ def viewdir_enc(viewdirs, min_deg: int = 0, max_deg: int = 4):
 
 def viewdir_enc_dim(min_deg: int = 0, max_deg: int = 4) -> int:
     return 4 * (max_deg - min_deg)
+
+
+def unit_viewdir_enc(viewdirs, min_deg: int = 0, max_deg: int = 4):
+    """The published network's view-direction encoding (multinerf's
+    ``pos_enc`` with the identity appended first): the unit vector, then
+    sin of its coordinates at 2^i (scale-major), then sin of the same plus
+    pi/2, as there (not cos).
+
+    viewdirs: [..., 3] -> [..., 3 + 6*(max_deg-min_deg)] features.
+    """
+    scales = torch.tensor([2.0**i for i in range(min_deg, max_deg)],
+                          dtype=viewdirs.dtype, device=viewdirs.device)
+    x = (viewdirs[..., None, :] * scales[:, None]).reshape(
+        viewdirs.shape[:-1] + (-1,))
+    return torch.cat(
+        [viewdirs, torch.sin(torch.cat([x, x + 0.5 * np.pi], dim=-1))], dim=-1)

@@ -142,8 +142,9 @@ def blur_weights(weights):
 @torch.no_grad()
 def resample_along_rays(t_vals, weights, randomized: bool,
                         resample_padding: float, u_typo: bool = False, *,
-                        noise=None, generator=None):
-    """Hierarchical resampling of ``t_vals.shape[-1]`` new edges.
+                        noise=None, generator=None, num_edges=None):
+    """Hierarchical resampling of ``num_edges`` new edges (by default
+    ``t_vals.shape[-1]``, as many as there were).
 
     The weight histogram is blurred, padded, and inverse-CDF sampled. It runs
     under ``torch.no_grad``: sampling locations carry no gradients (the JAX
@@ -151,5 +152,5 @@ def resample_along_rays(t_vals, weights, randomized: bool,
     """
     w = blur_weights(weights) + resample_padding
     return sorted_piecewise_constant_pdf(
-        t_vals, w, t_vals.shape[-1], randomized, u_typo=u_typo,
+        t_vals, w, num_edges or t_vals.shape[-1], randomized, u_typo=u_typo,
         noise=noise, generator=generator)

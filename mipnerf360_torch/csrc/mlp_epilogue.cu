@@ -11,7 +11,10 @@
 //
 // E1 (forward, every hidden layer): h = relu(bf16(y + b)), y the f32 GEMM
 //    output, b the f32 bias, added in f32 before the rounding. ReLU commutes
-//    with the rounding to nearest.
+//    with the rounding to nearest. A layer with a second input (the
+//    published trunk's skip, the view branch's direction encoding) has a
+//    second f32 GEMM output y1 of the same shape:
+//    h = relu(bf16((y + y1) + b)).
 // E2 (backward, every hidden layer below another): g = bf16(dx) where h > 0,
 //    else 0, with dx = dx0 (+ dx1) the f32 GEMM output of the layer above
 //    (two parts where that layer's cotangent was split in hi + lo), h this
@@ -23,7 +26,10 @@
 //    proposal MLP): g = that dx where h > 0, as E2. Two heads (split = 1, the
 //    NeRF trunk with its density and rgb heads): s = dx_0 + dx_1 in f32, then
 //    the mask, db, and s written as hi = bf16(s), lo = bf16(s - hi), the
-//    split cotangent of the trunk's last GEMM pair.
+//    split cotangent of the trunk's last GEMM pair. With one head and split,
+//    a wide head's dX from its GEMM (f32, `extra`) is rounded to bf16 and
+//    added to the thin head's: s = dx_0 + bf16(extra) (the published trunk
+//    under its density head and bottleneck).
 //
 // The mask is h <= 0 -> 0, as threshold_backward reads the saved output: a
 // NaN in h passes the gradient. Rounding is to nearest even, by the card's
@@ -33,8 +39,9 @@
 // a second pass sums that in block order, so repeated runs give the same
 // bits.
 //
-// What bounds them: bytes. Per element E1 reads 4 and writes 2; E2 reads 4
-// (8 with two parts) and 2 and writes 2; E3 reads 2 and writes 2 (4 split).
+// What bounds them: bytes. Per element E1 reads 4 (8 with a second input)
+// and writes 2; E2 reads 4 (8 with two parts) and 2 and writes
+// 2; E3 reads 2 (6 with a wide head's dX) and writes 2 (4 split).
 // At M = 262,144 and N = 1,024 E1 moves 1.61 GB (0.48 ms at 3.35 TB/s), E2
 // 2.15 GB (0.64 ms), E3 split 1.61 GB (0.48 ms). The arithmetic is a few
 // operations per element, far under the card's rate.
@@ -108,9 +115,12 @@ __device__ __forceinline__ void store_bf16(uint16_t* p,
                  v[4] | (v[5] << 16), v[6] | (v[7] << 16));
 }
 
-// E1: h = relu(bf16(y + b)) over y [M, N]; `total` = M * N.
+// E1: h = relu(bf16(y + b)) over y [M, N]; `total` = M * N. kTwo: y1
+// [M, N] is added to y first.
+template <bool kTwo>
 __global__ void __launch_bounds__(kThreads)
     mlp_e1_bias_relu(const float* __restrict__ y,
+                     const float* __restrict__ y1,
                      const float* __restrict__ bias,
                      uint16_t* __restrict__ h, int64_t total, int n) {
   const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads * kVec;
@@ -120,6 +130,12 @@ __global__ void __launch_bounds__(kThreads)
     const int col = static_cast<int>(e % n);
     float v[kVec], b[kVec];
     load_f32(y + e, v);
+    if constexpr (kTwo) {
+      float v1[kVec];
+      load_f32(y1 + e, v1);
+#pragma unroll
+      for (int k = 0; k < kVec; ++k) v[k] += v1[k];
+    }
     load_f32(bias + col, b);
     uint32_t out[kVec];
 #pragma unroll
@@ -226,11 +242,13 @@ __device__ __forceinline__ const uint16_t* head_array(
 }
 
 // E3: the heads' dx formed here, then as E2 (kSplit false, one head: g into
-// out0) or summed over the heads, masked and split (kSplit: hi into out0, lo
-// into out1); the block's column sums into `partial`.
+// out0) or summed over the heads (and `extra`, rounded, where not null),
+// masked and split (kSplit: hi into out0, lo into out1); the block's column
+// sums into `partial`.
 template <bool kSplit>
 __global__ void __launch_bounds__(kThreads)
     mlp_e3_heads_relu_bwd(Heads heads, const uint16_t* __restrict__ h,
+                          const float* __restrict__ extra,
                           uint16_t* __restrict__ out0,
                           uint16_t* __restrict__ out1,
                           float* __restrict__ partial, int64_t m, int n,
@@ -256,6 +274,8 @@ __global__ void __launch_bounds__(kThreads)
     const int64_t e = r * n + c.col;
     uint32_t hb[kVec];
     load_bf16(h + e, hb);
+    float ex[kVec];
+    if (kSplit && extra) load_f32(extra + e, ex);
     float hi[kMaxHeadCols], lo[kMaxHeadCols];
 #pragma unroll
     for (int q = 0; q < kMaxHeadCols; ++q) {
@@ -285,6 +305,7 @@ __global__ void __launch_bounds__(kThreads)
       if constexpr (kSplit) {
         float s = bf16_to_f32(r_bits);
         if (heads.count == 2) s += bf16_to_f32(f32_to_bf16(a1 + b1));
+        if (extra) s += bf16_to_f32(f32_to_bf16(ex[k]));
         if (not_positive(hb[k])) s = 0.f;
         acc[k] += s;
         o0[k] = f32_to_bf16(s);
@@ -353,22 +374,29 @@ int reduce_bias_grad(const float* partial, float* db, int blocks, int n,
 }  // namespace
 
 // Launches E1 on `stream`: h [m, n] bf16 = relu(bf16(y + b)), y [m, n] and
-// b [n] float32. Pointers are device pointers to contiguous arrays; `blocks`
-// caps the grid. Returns cudaGetLastError() (0 on success).
-extern "C" int mlp_epilogue_e1(const void* y_, const void* b_, void* h_,
-                               long long m, int n, int blocks,
-                               void* stream_) {
+// b [n] float32; where y1 is not null, relu(bf16((y + y1) + b)) with y1
+// [m, n] float32. Pointers are device pointers to contiguous arrays; `blocks` caps the
+// grid. Returns cudaGetLastError() (0 on success).
+extern "C" int mlp_epilogue_e1(const void* y_, const void* y1_,
+                               const void* b_, void* h_, long long m, int n,
+                               int blocks, void* stream_) {
   if (m <= 0 || n <= 0 || blocks <= 0) return cudaErrorInvalidValue;
   const auto y = static_cast<const float*>(y_);
+  const auto y1 = static_cast<const float*>(y1_);
   const auto b = static_cast<const float*>(b_);
   const auto h = static_cast<uint16_t*>(h_);
   const auto stream = static_cast<cudaStream_t>(stream_);
-  if (!takes(n, {y, b, h})) return cudaErrorInvalidValue;
+  if (!takes(n, {y, y1, b, h})) return cudaErrorInvalidValue;
   const int64_t total = static_cast<int64_t>(m) * n;
   const int64_t per_block = static_cast<int64_t>(kThreads) * kVec;
   const int64_t need = (total + per_block - 1) / per_block;
   const unsigned grid = static_cast<unsigned>(need < blocks ? need : blocks);
-  mlp_e1_bias_relu<<<grid, kThreads, 0, stream>>>(y, b, h, total, n);
+  if (y1)
+    mlp_e1_bias_relu<true><<<grid, kThreads, 0, stream>>>(y, y1, b, h, total,
+                                                           n);
+  else
+    mlp_e1_bias_relu<false><<<grid, kThreads, 0, stream>>>(y, y1, b, h,
+                                                            total, n);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -401,19 +429,20 @@ extern "C" int mlp_epilogue_e2(const void* dx0_, const void* dx1_,
 // Launches E3 on `stream`. Head t (t < count, count 1 or 2) gives hi_t,
 // lo_t [m, width_t] and w_t [n, width_t] bf16, widths summing to at most 4.
 // split = 0 (one head): g [m, n] bf16 into out0; split = 1: hi and lo [m, n]
-// bf16 into out0 and out1. db [n] float32; `partial` is [blocks, n] float32
+// bf16 into out0 and out1. `extra`, null or (split, one head) a wide head's
+// dX [m, n] float32. db [n] float32; `partial` is [blocks, n] float32
 // scratch. Returns cudaGetLastError().
 extern "C" int mlp_epilogue_e3(const void* hi0, const void* lo0,
                                const void* w0, int width0, const void* hi1,
                                const void* lo1, const void* w1, int width1,
-                               int count, const void* h_, void* out0_,
-                               void* out1_, void* partial_, void* db_,
-                               long long m, int n, int blocks, int split,
-                               void* stream_) {
+                               int count, const void* h_, const void* extra_,
+                               void* out0_, void* out1_, void* partial_,
+                               void* db_, long long m, int n, int blocks,
+                               int split, void* stream_) {
   if (m <= 0 || n <= 0 || blocks <= 0 || count < 1 || count > kMaxHeads ||
       width0 < 1 || (count == 2 && width1 < 1) ||
       width0 + (count == 2 ? width1 : 0) > kMaxHeadCols ||
-      (!split && count != 1))
+      (!split && count != 1) || (extra_ && (!split || count != 1)))
     return cudaErrorInvalidValue;
   Heads heads{};
   heads.hi[0] = static_cast<const uint16_t*>(hi0);
@@ -426,19 +455,20 @@ extern "C" int mlp_epilogue_e3(const void* hi0, const void* lo0,
   heads.width[1] = count == 2 ? width1 : 0;
   heads.count = count;
   const auto h = static_cast<const uint16_t*>(h_);
+  const auto extra = static_cast<const float*>(extra_);
   const auto out0 = static_cast<uint16_t*>(out0_);
   const auto out1 = static_cast<uint16_t*>(out1_);
   const auto partial = static_cast<float*>(partial_);
   const auto stream = static_cast<cudaStream_t>(stream_);
-  if (!(split ? takes(n, {h, out0, out1}) : takes(n, {h, out0})))
+  if (!(split ? takes(n, {h, extra, out0, out1}) : takes(n, {h, out0})))
     return cudaErrorInvalidValue;
   const int64_t rows = rows_per_block(m, blocks);
   if (split)
     mlp_e3_heads_relu_bwd<true><<<blocks, kThreads, 0, stream>>>(
-        heads, h, out0, out1, partial, m, n, rows);
+        heads, h, extra, out0, out1, partial, m, n, rows);
   else
     mlp_e3_heads_relu_bwd<false><<<blocks, kThreads, 0, stream>>>(
-        heads, h, out0, out1, partial, m, n, rows);
+        heads, h, extra, out0, out1, partial, m, n, rows);
   return reduce_bias_grad(partial, static_cast<float*>(db_), blocks, n,
                           stream);
 }

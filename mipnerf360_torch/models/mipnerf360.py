@@ -4,9 +4,13 @@
 The functions take params as the JAX package's nested tree —
 ``{"prop": {"layers": [...]}, "nerf": {"trunk"|"density"|"rgb": {"layers":
 [...]}}}`` of tensors — and :class:`MipNeRF360` is the ``nn.Module`` that holds
-them with the same nesting. Where the JAX package threads a ``jax.random``
-key, the randomized branches here take explicit noise tensors (or draw from a
-``torch.Generator``). Both composites go through ``ops.fused``: a CUDA tensor
+them with the same nesting. The published layout (``ModelConfig``'s
+``proposal_rounds``, ``trunk_skip``, ``bottleneck_width``, ...; the
+``garden_paper`` preset) adds ``nerf.bottleneck``, widens the trunk's skip
+layers by the input, and makes ``nerf.rgb`` the view branch: its first layer
+takes the bottleneck and the view-direction encoding. Where the JAX package
+threads a ``jax.random`` key, the randomized branches here take explicit
+noise tensors (or draw from a ``torch.Generator``). Both composites go through ``ops.fused``: a CUDA tensor
 launches the Hopper kernel K1 (and K2 in the backward), a CPU tensor takes
 its plain version; only the sample-axis render composites the NeRF level
 across ranks, in plain PyTorch (``parallel/sample_axis.py``). The forward
@@ -22,7 +26,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..config import ModelConfig
-from ..core.encoding import integrated_pos_enc, viewdir_enc
+from ..core.encoding import integrated_pos_enc, unit_viewdir_enc, viewdir_enc
 from ..core.fused_encode import factored_ipe
 from ..core.gaussians import cast_rays
 from ..core.rays import Rays, rays_map, rays_to_device, resolve_device
@@ -34,8 +38,8 @@ from ..parallel.collectives import gather_cat
 from ..parallel.mesh import make_mesh, rank_device
 from ..parallel.sample_axis import make_sample_sharded_composite
 from ..utils.trace import span
-from .mlp import (ACTIVATIONS, apply_mlp, fused_relu_stack, init_mlp,
-                  relu_stack_heads)
+from .mlp import (ACTIVATIONS, Extra, apply_linear, apply_mlp,
+                  fused_relu_stack, init_linear, init_mlp, relu_stack_heads)
 
 Params = Dict[str, Any]
 
@@ -44,22 +48,45 @@ class RenderNoise(NamedTuple):
     """The uniform draws of a randomized forward: ``sample`` [B, N+1] in
     [0, 1) jitters the proposal edges, ``resample`` [B, N+1] in
     [0, 1/(N+1) - eps) is the stratified inverse-CDF jitter of the NeRF level
-    (the draws the JAX package takes from its two split keys)."""
+    (the draws the JAX package takes from its two split keys). With more
+    than one proposal round, ``resample`` holds each resampling's jitter in
+    turn along its last axis: [B, N+1] for each round after the first, then
+    the NeRF level's [B, nerf_samples + 1]."""
 
     sample: torch.Tensor
     resample: torch.Tensor
 
 
 def draw_render_noise(generator: torch.Generator, batch: int,
-                      num_samples: int, device) -> RenderNoise:
+                      num_samples: int, device, rounds: int = 1,
+                      nerf_samples: int = 0) -> RenderNoise:
     """The uniforms a randomized :func:`render_rays` of ``batch`` rays draws
     from ``generator`` when it is given no noise, in the same order and bit
-    for bit. A data-parallel step draws them over the global batch and keeps
-    its own rows, so that every rank takes the one-process step's noise."""
+    for bit (``rounds`` proposal rounds, ``nerf_samples`` NeRF samples, 0:
+    ``num_samples``). A data-parallel step draws them over the global batch
+    and keeps its own rows, so that every rank takes the one-process step's
+    noise."""
     like = torch.empty(0, device=device)
     shape = (batch, num_samples + 1)
     sample = _uniform(shape, like, generator)
-    return RenderNoise(sample, stratified_jitter(shape, like, generator))
+    jitters = [stratified_jitter(shape, like, generator)
+               for _ in range(rounds - 1)]
+    jitters.append(stratified_jitter(
+        (batch, (nerf_samples or num_samples) + 1), like, generator))
+    return RenderNoise(sample, torch.cat(jitters, dim=-1) if rounds > 1
+                       else jitters[0])
+
+
+def _noise_parts(cfg: ModelConfig, noise: Optional[RenderNoise]):
+    """(the first round's edge jitter, each later round's resample jitter,
+    the NeRF level's) of ``noise``, all None without it."""
+    if noise is None:
+        return None, [None] * (cfg.proposal_rounds - 1), None
+    n = cfg.num_samples + 1
+    sample, r = noise
+    return (sample, [r[..., i * n:(i + 1) * n]
+                     for i in range(cfg.proposal_rounds - 1)],
+            r[..., (cfg.proposal_rounds - 1) * n:])
 
 
 def _compute_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -73,22 +100,28 @@ def init_model(cfg: ModelConfig, generator: Optional[torch.Generator] = None
     real-fan-in draw."""
     if generator is None:
         generator = torch.Generator().manual_seed(0)
-    d = cfg.input_dim
+    d, hn = cfg.input_dim, cfg.hidden_nerf
     prop_sizes = [d] + [cfg.hidden_proposal] * cfg.proposal_depth + [1]
-    nerf_sizes = [d] + [cfg.hidden_nerf] * cfg.nerf_depth
-    params = {
-        "prop": init_mlp(generator, prop_sizes),
-        "nerf": {
-            "trunk": init_mlp(generator, nerf_sizes),
-            "density": init_mlp(generator, [cfg.hidden_nerf, 1]),
-            "rgb": init_mlp(generator, [cfg.hidden_nerf, 3]),
-        },
-    }
+    trunk_in = [d] + [hn + d if i in cfg.skip_layers else hn
+                      for i in range(1, cfg.nerf_depth)]
+    prop = init_mlp(generator, prop_sizes)
+    nerf = {"trunk": {"layers": [init_linear(generator, fi, hn)
+                                 for fi in trunk_in]},
+            "density": init_mlp(generator, [hn, 1])}
+    if cfg.bottleneck_width:
+        nerf["bottleneck"] = init_mlp(generator, [hn, cfg.bottleneck_width])
+        nerf["rgb"] = init_mlp(generator, [
+            cfg.bottleneck_width + cfg.viewdir_dim, cfg.viewdir_width, 3])
+    else:
+        nerf["rgb"] = init_mlp(generator, [hn, 3])
+    params = {"prop": prop, "nerf": nerf}
     pad = cfg.padded_input_dim - d
     if pad:
-        for tower in (params["prop"], params["nerf"]["trunk"]):
-            w = tower["layers"][0]["w"]
-            tower["layers"][0]["w"] = torch.cat(
+        trunk = params["nerf"]["trunk"]["layers"]
+        for layer in [params["prop"]["layers"][0], trunk[0]] + [
+                trunk[i] for i in cfg.skip_layers]:
+            w = layer["w"]
+            layer["w"] = torch.cat(
                 [w, torch.zeros((pad, w.shape[1]), dtype=w.dtype)], dim=0)
     return params
 
@@ -130,10 +163,12 @@ def _encode(cfg: ModelConfig, rays: Rays, t_vals):
                                     rays.radii, ray_shape=cfg.ray_shape)
             pos = integrated_pos_enc(means, covs, cfg.ipe_min_deg,
                                      cfg.ipe_max_deg)    # [B, N, 42*scales]
-        view = viewdir_enc(rays.viewdirs, cfg.viewdir_min_deg,
-                           cfg.viewdir_max_deg)
-        view = view[..., None, :].expand(pos.shape[:-1] + (view.shape[-1],))
-        x = torch.cat([pos, view], dim=-1)
+        x = pos
+        if not cfg.bottleneck_width:
+            view = viewdir_enc(rays.viewdirs, cfg.viewdir_min_deg,
+                               cfg.viewdir_max_deg)
+            view = view[..., None, :].expand(pos.shape[:-1] + (view.shape[-1],))
+            x = torch.cat([pos, view], dim=-1)
         pad = cfg.padded_input_dim - cfg.input_dim
         if pad:
             x = torch.cat([x, x.new_zeros(x.shape[:-1] + (pad,))], dim=-1)
@@ -142,17 +177,42 @@ def _encode(cfg: ModelConfig, rays: Rays, t_vals):
 
 def prop_forward(params: Params, cfg: ModelConfig, rays: Rays,
                  randomized: bool, *, noise=None, generator=None):
-    """Proposal level: sample -> encode -> density -> weights."""
+    """Proposal level (its first round): sample -> encode -> density ->
+    weights."""
     with span("model.sample"):
         t_vals = sample_along_rays(rays.near, rays.far, cfg.num_samples,
                                    randomized, noise=noise, generator=generator)
+    return t_vals, _prop_weights(params, cfg, rays, t_vals)
+
+
+def _prop_weights(params: Params, cfg: ModelConfig, rays: Rays, t_vals):
     x = _encode(cfg, rays, t_vals)
     raw = apply_mlp(params["prop"], x, _prop_activations(cfg), _compute_dtype(cfg))
     with span("model.composite"):
         density = _softplus(raw[..., 0] + cfg.density_bias)
-        weights = fused.compute_alpha_weights(
+        return fused.compute_alpha_weights(
             density, t_vals, rays.directions, cfg.use_pallas)
-    return t_vals, weights
+
+
+def prop_rounds(params: Params, cfg: ModelConfig, rays: Rays,
+                randomized: bool, *, noise: Optional[RenderNoise] = None,
+                generator=None):
+    """Every proposal round through the one proposal MLP: [(t_vals,
+    weights)] in order, each round after the first resampling
+    ``num_samples`` samples from the one before. ``noise``: the forward's
+    :class:`RenderNoise` (its NeRF part unused)."""
+    first, jitters, _ = _noise_parts(cfg, noise)
+    rounds = [prop_forward(params, cfg, rays, randomized, noise=first,
+                           generator=generator)]
+    for jitter in jitters:
+        t, w = rounds[-1]
+        with span("model.sample"):
+            t = fused.resample_along_rays(t, w, randomized,
+                                          cfg.resample_padding, cfg.use_pallas,
+                                          u_typo=cfg.resample_u_typo,
+                                          noise=jitter, generator=generator)
+        rounds.append((t, _prop_weights(params, cfg, rays, t)))
+    return rounds
 
 
 def nerf_forward(params: Params, cfg: ModelConfig, rays: Rays, t_vals, weights,
@@ -175,7 +235,8 @@ def nerf_forward(params: Params, cfg: ModelConfig, rays: Rays, t_vals, weights,
         new_t = fused.resample_along_rays(t_vals, weights, randomized,
                                           cfg.resample_padding, cfg.use_pallas,
                                           u_typo=cfg.resample_u_typo,
-                                          noise=noise, generator=generator)
+                                          noise=noise, generator=generator,
+                                          num_edges=cfg.nerf_sample_count + 1)
     full_t = new_t
     if composite_fn is not None:
         sl = composite_fn.local_slice(new_t.shape[-1] - 1)
@@ -184,6 +245,31 @@ def nerf_forward(params: Params, cfg: ModelConfig, rays: Rays, t_vals, weights,
     dt = _compute_dtype(cfg)
 
     density_act = "sigmoid" if cfg.density_head_sigmoid else "none"
+
+    def branch_tower(nerf, x, view):
+        """The published layout: the trunk with its skips under the density
+        head and the bottleneck (read in bf16), then the view branch with
+        the direction encoding of each sample's ray."""
+        trunk = nerf["trunk"]["layers"]
+        heads = [nerf["density"]["layers"][0], nerf["bottleneck"]["layers"][0]]
+        skips = [Extra(i) for i in cfg.skip_layers]
+        acts = _trunk_activations(cfg)
+        if fused_relu_stack(x, dt, None, trunk, acts, heads, True, skips):
+            with span("model.mlp"):
+                y_density, bottleneck = relu_stack_heads(
+                    trunk, heads, x, split=True, rounded_head=True,
+                    extras=skips)
+                y_density = ACTIVATIONS[density_act](y_density)
+        else:
+            feat = apply_mlp(nerf["trunk"], x, acts, dt, extras=skips)
+            y_density = apply_mlp(nerf["density"], feat, [density_act], dt)
+            with span("model.mlp"):
+                bottleneck = apply_linear(heads[1], feat, dt,
+                                          g_rounded=True).to(dt)
+        view = view.to(dt)[..., None, :].expand(x.shape[:-1] + view.shape[-1:])
+        raw_rgb = apply_mlp(nerf["rgb"], bottleneck, ["relu", "sigmoid"], dt,
+                            extras=[Extra(0, view)])
+        return y_density, raw_rgb
 
     def tower(nerf, x):
         heads = [nerf["density"]["layers"], nerf["rgb"]["layers"]]
@@ -204,11 +290,19 @@ def nerf_forward(params: Params, cfg: ModelConfig, rays: Rays, t_vals, weights,
         raw_rgb = apply_mlp(nerf["rgb"], feat, ["sigmoid"], dt)
         return raw_density, raw_rgb
 
+    args = (params["nerf"], x)
+    if cfg.bottleneck_width:
+        if composite_fn is not None or tp_group is not None:
+            raise ValueError("the view-branch layout (bottleneck_width > 0) "
+                             "has no tensor-parallel or sample-axis path")
+        with span("model.encode"):
+            view = unit_viewdir_enc(rays.viewdirs, cfg.viewdir_min_deg,
+                                    cfg.viewdir_max_deg)
+        tower, args = branch_tower, args + (view,)
     if cfg.remat and torch.is_grad_enabled():
-        raw_density, raw_rgb = checkpoint(tower, params["nerf"], x,
-                                          use_reentrant=False)
+        raw_density, raw_rgb = checkpoint(tower, *args, use_reentrant=False)
     else:
-        raw_density, raw_rgb = tower(params["nerf"], x)
+        raw_density, raw_rgb = tower(*args)
 
     with span("model.composite"):
         rgb = raw_rgb * (1.0 + 2.0 * cfg.rgb_padding) - cfg.rgb_padding
@@ -236,22 +330,23 @@ def render_rays(params: Params, cfg: ModelConfig, rays: Rays, randomized: bool,
                 *, noise: Optional[RenderNoise] = None,
                 generator: Optional[torch.Generator] = None,
                 composite_fn=None, tp_group=None):
-    """Full two-level forward, returning both levels' internals.
+    """Full forward, returning every level's internals: the NeRF level's,
+    ``props`` (each proposal round's (t_vals, weights)), and ``t_prop``,
+    ``w_prop`` (the first round's).
 
-    With ``randomized``, ``noise`` supplies both levels' uniform draws; when
+    With ``randomized``, ``noise`` supplies every level's uniform draws; when
     it is None they are drawn from ``generator``. ``composite_fn`` and
     ``tp_group`` apply to the NeRF level only (see :func:`nerf_forward`):
     the proposal level, whose weights feed the resampling, runs whole on
     every rank.
     """
-    n_prop, n_nerf = (None, None) if noise is None else noise
-    t_prop, w_prop = prop_forward(params, cfg, rays, randomized,
-                                  noise=n_prop, generator=generator)
-    out = nerf_forward(params, cfg, rays, t_prop, w_prop, randomized,
-                       noise=n_nerf, generator=generator,
+    props = prop_rounds(params, cfg, rays, randomized, noise=noise,
+                        generator=generator)
+    out = nerf_forward(params, cfg, rays, *props[-1], randomized,
+                       noise=_noise_parts(cfg, noise)[2], generator=generator,
                        composite_fn=composite_fn, tp_group=tp_group)
-    out["t_prop"] = t_prop
-    out["w_prop"] = w_prop
+    out["t_prop"], out["w_prop"] = props[0]
+    out["props"] = props
     return out
 
 
@@ -353,7 +448,9 @@ class MipNeRF360(nn.Module):
             params = init_model(cfg, generator)
         self.prop = _MLP(params["prop"])
         self.nerf = nn.ModuleDict(
-            {k: _MLP(params["nerf"][k]) for k in ("trunk", "density", "rgb")})
+            {k: _MLP(params["nerf"][k])
+             for k in ("trunk", "density", "bottleneck", "rgb")
+             if k in params["nerf"]})
 
     def params(self) -> Params:
         """The parameters as the nested tree the functions take; its leaves

@@ -29,10 +29,16 @@ trunk with its density and rgb heads) runs as one autograd Function whose
 epilogue around each cuBLAS GEMM is a hand-written kernel
 (``ops/mlp_epilogue.py``: E1 forward, E2 and E3 backward): the same
 arithmetic as the layer-by-layer chain, one pass over each activation.
+
+A hidden layer may take a second input (:class:`Extra`: the published
+trunk's skip, the view branch's direction encoding) as a second product
+added in f32 before the bias, and a stack may end in a wide head whose
+output is read in bf16 (the published trunk's bottleneck): the chain and the
+fused stack take both alike.
 """
 from __future__ import annotations
 
-from typing import Sequence
+from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -188,28 +194,66 @@ def apply_linear(layer, x, compute_dtype=torch.bfloat16, *,
     return y + layer["b"]
 
 
+class Extra(NamedTuple):
+    """A second input of hidden layer ``layer`` of a stack: features ``x``
+    (None: the stack's own input), one row of them per row of the layer's
+    input. The layer's weight rows are its input's, then these; its
+    pre-activation is (in @ w[:k] + x @ w[k:]) + b in f32. ``x`` takes no
+    gradient."""
+
+    layer: int
+    x: Optional[torch.Tensor] = None
+
+
+def _linear_extra(layer, x, extra_x, compute_dtype, g_rounded):
+    """:func:`apply_linear` of a layer with a second input (:class:`Extra`):
+    two compute-dtype products with f32 results, added in f32, then the
+    bias."""
+    k = x.shape[-1]
+    w = layer["w"]
+    y = _matmul_f32(x.to(compute_dtype), w[:k].to(compute_dtype), g_rounded)
+    y1 = _matmul_f32(extra_x.to(compute_dtype), w[k:].to(compute_dtype),
+                     g_rounded)
+    return (y + y1) + layer["b"]
+
+
 def apply_mlp(params, x, activations: Sequence[str],
-              compute_dtype=torch.bfloat16, tp_group=None):
+              compute_dtype=torch.bfloat16, tp_group=None,
+              extras: Sequence[Extra] = ()):
     """Apply the stack; ``activations[i]`` follows layer i ("none" for linear out).
 
     ``tp_group``: the stack is split over this group, Megatron-style (the
     layout of ``parallel/mesh.py::shard_params``): even layers split their
     columns, odd layers their rows, so the activations alternate between
     this rank's columns and whole. An odd depth ends on split columns, which
-    are gathered (every rank uses the whole output alike)."""
+    are gathered (every rank uses the whole output alike).
+
+    ``extras``: second inputs of hidden layers (:class:`Extra`; not with
+    ``tp_group``)."""
     layers = params["layers"]
     if len(layers) != len(activations):
         raise ValueError(f"{len(layers)} layers but {len(activations)} activations")
+    if extras and tp_group is not None:
+        raise ValueError("a layer with a second input has no tensor-parallel "
+                         "split")
     with span("model.mlp"):
         if len(layers) > 1 and fused_relu_stack(
                 x, compute_dtype, tp_group, layers[:-1], activations[:-1],
-                layers[-1:]):
-            (y,) = relu_stack_heads(layers[:-1], layers[-1:], x, split=False)
+                layers[-1:], False, extras):
+            (y,) = relu_stack_heads(layers[:-1], layers[-1:], x, split=False,
+                                    extras=extras)
             return ACTIVATIONS[activations[-1]](y).to(torch.float32)
+        second = {e.layer: e for e in extras}
+        x0 = x
         for i, (layer, act) in enumerate(zip(layers, activations)):
             hidden = i + 1 < len(layers)
-            y = apply_linear(layer, x, compute_dtype, g_rounded=hidden,
-                             group=tp_group, row_split=i % 2 == 1)
+            e = second.get(i)
+            if e is None:
+                y = apply_linear(layer, x, compute_dtype, g_rounded=hidden,
+                                 group=tp_group, row_split=i % 2 == 1)
+            else:
+                y = _linear_extra(layer, x, x0 if e.x is None else e.x,
+                                  compute_dtype, hidden)
             if hidden:
                 y = y.to(compute_dtype)
             x = ACTIVATIONS[act](y)
@@ -219,24 +263,37 @@ def apply_mlp(params, x, activations: Sequence[str],
 
 
 def fused_relu_stack(x, compute_dtype, tp_group, hidden, hidden_activations,
-                     heads) -> bool:
+                     heads, rounded_head: bool = False,
+                     extras: Sequence[Extra] = ()) -> bool:
     """Whether :func:`relu_stack_heads` takes these layers: a CUDA input, a
     bf16 compute dtype, no tensor-parallel group (its all-reduce comes
     before the rounding), ReLU after every hidden layer (sigmoid does not
     commute with the rounding), hidden widths the kernels take
-    (``mlp_epilogue.takes_width``), and one or two heads of at most
-    ``mlp_epilogue.MAX_HEAD_OUTPUTS`` outputs in all."""
+    (``mlp_epilogue.takes_width``), one or two thin heads of at most
+    ``mlp_epilogue.MAX_HEAD_OUTPUTS`` outputs in all, then with
+    ``rounded_head`` one more head, beside a single thin one (E3 adds its dX
+    to that head's). ``extras`` (:class:`Extra`) at distinct hidden layers,
+    their features without gradient."""
+    thin = heads[:-1] if rounded_head else heads
+    n = len(hidden)
+    layers = [e.layer for e in extras]
     return (x.is_cuda and compute_dtype == torch.bfloat16 and tp_group is None
             and len(hidden_activations) > 0
             and all(a == "relu" for a in hidden_activations)
             and all(mlp_epilogue.takes_width(layer["w"].shape[-1])
                     for layer in hidden)
-            and 1 <= len(heads) <= 2
-            and sum(h["w"].shape[-1] for h in heads)
-            <= mlp_epilogue.MAX_HEAD_OUTPUTS)
+            and 1 <= len(thin) <= 2
+            and sum(h["w"].shape[-1] for h in thin)
+            <= mlp_epilogue.MAX_HEAD_OUTPUTS
+            and (not rounded_head or len(thin) == 1)
+            and len(set(layers)) == len(layers)
+            and all(0 <= i < n for i in layers)
+            and not any((x if e.x is None else e.x).requires_grad
+                        for e in extras))
 
 
-def relu_stack_heads(hidden, heads, x, split: bool):
+def relu_stack_heads(hidden, heads, x, split: bool, rounded_head: bool = False,
+                     extras: Sequence[Extra] = ()):
     """ReLU layers ``hidden`` (bf16 GEMMs, f32 bias, bf16 outputs), then each
     of ``heads`` (one linear layer each) on the last one's output; returns
     each head's f32 ``h @ w + b``, [..., out], its activation left to the
@@ -249,81 +306,128 @@ def relu_stack_heads(hidden, heads, x, split: bool):
     True for heads that each read the f32 output of a separate stack (their
     rounded dX summed in f32, a true f32 cotangent, split in hi + lo for the
     last hidden layer's GEMMs: the NeRF trunk under its two heads).
+
+    With ``rounded_head`` the last head returns ``h @ w + b`` rounded to
+    bf16, the value its reader casts to (the published trunk's bottleneck):
+    its cotangent holds bf16 values, so its dW and dX are one GEMM each, and
+    its dX reaches E3 as an f32 part. ``extras``: second inputs of
+    hidden layers (:class:`Extra`), as in :func:`apply_mlp`; a layer's dX
+    covers its first input only.
     """
     flat = [t for layer in list(hidden) + list(heads)
             for t in (layer["w"], layer["b"])]
+    plan = (len(hidden), len(heads) - int(rounded_head),
+            tuple((e.layer, e.x is not None) for e in extras))
+    ex = [e.x.reshape(-1, e.x.shape[-1]) for e in extras if e.x is not None]
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
     if torch.is_grad_enabled() and any(t.requires_grad for t in [x2] + flat):
-        outs = _ReluStackHeads.apply(x2, split, len(hidden), *flat)
+        outs = _ReluStackHeads.apply(x2, split, plan, len(ex), *ex, *flat)
     else:
-        outs = _relu_stack_forward(x2, flat, len(hidden), keep=False)[-1]
+        outs = _relu_stack_forward(x2, ex, flat, plan, keep=False)[-1]
     return [y.reshape(*lead, y.shape[-1]) for y in outs]
 
 
-def _relu_stack_forward(x, flat, n_hidden: int, keep: bool):
-    """The forward of :func:`relu_stack_heads` on [M, in] ``x`` and the
-    layers' (w, b) flattened: (x in bf16, the bf16 weights, the hidden
-    outputs when ``keep``, the heads' f32 outputs)."""
+def _second_inputs(plan, xb, exb):
+    """{layer: bf16 features} of the extras in ``plan``: the stack's input
+    ``xb``, or the next of ``exb``."""
+    feats = iter(exb)
+    return {layer: next(feats) if own else xb for layer, own in plan[2]}
+
+
+def _relu_stack_forward(x, ex, flat, plan, keep: bool):
+    """The forward of :func:`relu_stack_heads` on [M, in] ``x``, the 2-D
+    features of the extras that bring their own (``ex``) and the layers'
+    (w, b) flattened; ``plan`` is (hidden layers, thin heads, (layer, own
+    features) of each extra). Returns (x in bf16, ``ex`` in bf16, the
+    bf16 weights, the hidden outputs when ``keep``, the heads' outputs)."""
+    n_hidden, n_thin, _ = plan
     xb = x.to(torch.bfloat16)
+    exb = [f.to(torch.bfloat16) for f in ex]
+    second = _second_inputs(plan, xb, exb)
     ws = [w.to(torch.bfloat16) for w in flat[0::2]]
     bs = flat[1::2]
     h, acts = xb, []
-    for w, b in zip(ws[:n_hidden], bs[:n_hidden]):
-        h = mlp_epilogue.bias_relu(_mm_f32(h, w), b)
+    for i, (w, b) in enumerate(zip(ws[:n_hidden], bs[:n_hidden])):
+        if i in second:
+            k = h.shape[-1]
+            h = mlp_epilogue.bias_relu(_mm_f32(h, w[:k]), b,
+                                       _mm_f32(second[i], w[k:]))
+        else:
+            h = mlp_epilogue.bias_relu(_mm_f32(h, w), b)
         if keep:
             acts.append(h)
-    outs = [_mm_f32(h, w) + b for w, b in zip(ws[n_hidden:], bs[n_hidden:])]
-    return xb, ws, acts, outs
+    outs = []
+    for t, (w, b) in enumerate(zip(ws[n_hidden:], bs[n_hidden:])):
+        y = _mm_f32(h, w) + b
+        outs.append(y if t < n_thin else y.to(torch.bfloat16))
+    return xb, exb, ws, acts, outs
 
 
 class _ReluStackHeads(torch.autograd.Function):
     """:func:`relu_stack_heads` with the backward of the layer-by-layer
     chain (:class:`_MatmulF32`'s rules): dX and dW bf16 GEMMs with f32
     accumulation rounded to bf16, g_rounded cotangents in one GEMM, true f32
-    cotangents split in hi + lo. Saves the bf16 input, the bf16 weights and
-    the hidden layers' bf16 outputs, which the chain's GEMMs save too; no
-    f32 activation. Each head's bias gradient is its f32 cotangent's column
-    sum; each hidden layer's comes from E3 or E2."""
+    cotangents split in hi + lo. Saves the bf16 input and extras' features,
+    the bf16 weights and the hidden layers' bf16 outputs, which the chain's
+    GEMMs save too; no f32 activation. Each head's bias gradient is its
+    cotangent's column sum; each hidden layer's comes from E3 or E2."""
 
     @staticmethod
-    def forward(ctx, x, split: bool, n_hidden: int, *flat):
-        xb, ws, acts, outs = _relu_stack_forward(x, flat, n_hidden, keep=True)
-        ctx.save_for_backward(xb, *ws, *acts)
-        ctx.split, ctx.n_hidden, ctx.x_dtype = split, n_hidden, x.dtype
+    def forward(ctx, x, split: bool, plan, n_ex: int, *rest):
+        xb, exb, ws, acts, outs = _relu_stack_forward(
+            x, rest[:n_ex], rest[n_ex:], plan, keep=True)
+        ctx.save_for_backward(xb, *exb, *ws, *acts)
+        ctx.split, ctx.plan, ctx.n_ex, ctx.x_dtype = split, plan, n_ex, x.dtype
         return tuple(outs)
 
     @staticmethod
     def backward(ctx, *gs):
-        n = ctx.n_hidden
-        xb, *ws = ctx.saved_tensors
-        ws, acts = ws[:len(ws) - n], ws[len(ws) - n:]
-        needs = ctx.needs_input_grad[3:]
+        n, n_thin, _ = ctx.plan
+        xb, *rest = ctx.saved_tensors
+        exb, rest = rest[:ctx.n_ex], rest[ctx.n_ex:]
+        ws, acts = rest[:len(rest) - n], rest[len(rest) - n:]
+        second = _second_inputs(ctx.plan, xb, exb)
+        needs = ctx.needs_input_grad[4 + ctx.n_ex:]
         grads = [None] * len(needs)
 
         def weight_grad(i, x, parts):
-            if needs[2 * i]:
-                grads[2 * i] = _mm_sum([(x.t(), p) for p in parts]).to(
-                    torch.bfloat16).float()
+            if not needs[2 * i]:
+                return
+            dw = _mm_sum([(x.t(), p) for p in parts]).to(torch.bfloat16)
+            if i in second:
+                dw = torch.cat([dw, _mm_sum(
+                    [(second[i].t(), p) for p in parts]).to(torch.bfloat16)])
+            grads[2 * i] = dw.float()
 
-        heads = []
+        thin, wide = [], None
         for t, g in enumerate(gs):
             i = n + t
-            hi, lo = _split(g.contiguous(), torch.bfloat16)
-            weight_grad(i, acts[-1], [hi, lo])
-            if needs[2 * i + 1]:
-                grads[2 * i + 1] = g.sum(0)
-            heads.append((hi, lo, ws[i]))
-        parts, db = mlp_epilogue.heads_relu_bwd(acts[-1], heads, ctx.split)
+            if t < n_thin:
+                hi, lo = _split(g.contiguous(), torch.bfloat16)
+                weight_grad(i, acts[-1], [hi, lo])
+                if needs[2 * i + 1]:
+                    grads[2 * i + 1] = g.sum(0)
+                thin.append((hi, lo, ws[i]))
+            else:
+                g = g.contiguous()
+                weight_grad(i, acts[-1], [g])
+                if needs[2 * i + 1]:
+                    grads[2 * i + 1] = g.float().sum(0)
+                wide = _mm(g, ws[i].t())
+        parts, db = mlp_epilogue.heads_relu_bwd(acts[-1], thin, ctx.split,
+                                                extra=wide)
         dx = None
         for i in reversed(range(n)):
             grads[2 * i + 1] = db if needs[2 * i + 1] else None
-            weight_grad(i, acts[i - 1] if i else xb, parts)
+            x = acts[i - 1] if i else xb
+            weight_grad(i, x, parts)
+            w = ws[i][:x.shape[-1]]
             if i:
-                g, db = mlp_epilogue.relu_bwd(
-                    [_mm(p, ws[i].t()) for p in parts], acts[i - 1])
+                g, db = mlp_epilogue.relu_bwd([_mm(p, w.t()) for p in parts],
+                                              acts[i - 1])
                 parts = (g,)
             elif ctx.needs_input_grad[0]:
-                dx = _mm_sum([(p, ws[0].t()) for p in parts]).to(
+                dx = _mm_sum([(p, w.t()) for p in parts]).to(
                     torch.bfloat16).to(ctx.x_dtype)
-        return (dx, None, None, *grads)
+        return (dx, None, None, None, *[None] * ctx.n_ex, *grads)

@@ -33,10 +33,12 @@ def compute_alpha_weights(density, t_vals, dirs, mode: str = "auto"):
 
 def resample_along_rays(t_vals, weights, randomized: bool,
                         resample_padding: float, mode: str = "auto",
-                        u_typo: bool = False, *, noise=None, generator=None):
+                        u_typo: bool = False, *, noise=None, generator=None,
+                        num_edges=None):
     """Blur + inverse-CDF resampling. Always the plain path: the JAX package
     has no resample kernel either (see its ops/fused.py)."""
     _check_mode(mode)
     return sampling.resample_along_rays(t_vals, weights, randomized,
                                         resample_padding, u_typo=u_typo,
-                                        noise=noise, generator=generator)
+                                        noise=noise, generator=generator,
+                                        num_edges=num_edges)

@@ -8,7 +8,8 @@ rounding and the ReLU, and their backward, to XLA's fusion of plain jnp
 ``models/mlp.py::relu_stack_heads`` strings them between cuBLAS's GEMMs.
 
 - E1, :func:`bias_relu`: ``h = relu(bf16(y + b))`` from the f32 GEMM output
-  ``y`` and the f32 bias ``b``.
+  ``y`` and the f32 bias ``b``; for a layer with a second input, ``h =
+  relu(bf16((y + y1) + b))``, ``y1`` that input's f32 GEMM output.
 - E2, :func:`relu_bwd`: ``g = bf16(dx)`` where ``h > 0``, else 0, from the f32
   dX of the layer above (two parts where its cotangent was split in hi + lo,
   summed in f32 first) and this layer's bf16 output ``h``; ``db`` the column
@@ -17,7 +18,9 @@ rounding and the ReLU, and their backward, to XLA's fusion of plain jnp
   or two heads of at most :data:`MAX_HEAD_OUTPUTS` outputs in all, whose dX
   it forms itself from each head's split cotangent and bf16 weights. With
   ``split`` the heads' rounded dX are summed in f32, masked, and returned
-  split in hi + lo; without, one head's is masked as in E2.
+  split in hi + lo; without, one head's is masked as in E2. With ``split``
+  and one thin head, ``extra`` is a wide head's f32 dX from its GEMM, rounded
+  to bf16 and added to the thin head's.
 
 A CPU tensor takes the plain version. A CUDA tensor launches the kernel; a
 bad input (a width :func:`takes_width` refuses, a pointer that is not
@@ -57,12 +60,13 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("mlp_epilogue")
     if lib.mlp_epilogue_e1.argtypes is None:
         ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        lib.mlp_epilogue_e1.argtypes = [ptr, ptr, ptr, i64, i32, i32, ptr]
+        lib.mlp_epilogue_e1.argtypes = [ptr, ptr, ptr, ptr, i64, i32, i32,
+                                        ptr]
         lib.mlp_epilogue_e2.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, i64,
                                         i32, i32, ptr]
         lib.mlp_epilogue_e3.argtypes = [ptr, ptr, ptr, i32, ptr, ptr, ptr,
                                         i32, i32, ptr, ptr, ptr, ptr, ptr,
-                                        i64, i32, i32, i32, ptr]
+                                        ptr, i64, i32, i32, i32, ptr]
         for fn in (lib.mlp_epilogue_e1, lib.mlp_epilogue_e2,
                    lib.mlp_epilogue_e3):
             fn.restype = ctypes.c_int
@@ -78,8 +82,10 @@ def takes_width(n: int) -> bool:
     return n > 0 and n % VEC == 0 and THREADS % (n // VEC) == 0
 
 
-def plain_bias_relu(y, b):
+def plain_bias_relu(y, b, y1=None):
     """The plain PyTorch version of E1."""
+    if y1 is not None:
+        y = y + y1
     return torch.relu((y + b).to(BF16))
 
 
@@ -110,10 +116,12 @@ def _thin_dx(hi, lo, w):
     return (a + b).to(BF16)
 
 
-def plain_heads_relu_bwd(h, heads, split: bool):
+def plain_heads_relu_bwd(h, heads, split: bool, extra=None):
     """The plain PyTorch version of E3: ``heads`` is a list of (hi, lo, w)
     per head. Returns ((hi, lo), db) with ``split``, else ((g,), db)."""
     r = [_thin_dx(*head) for head in heads]
+    if extra is not None:
+        r.append(extra.to(BF16))
     if not split:
         g = _mask(h, r[0])
         return (g,), g.float().sum(0)
@@ -125,20 +133,25 @@ def plain_heads_relu_bwd(h, heads, split: bool):
     return (hi, (s - hi.float()).to(BF16)), s.sum(0)
 
 
-def bias_relu(y, b):
-    """E1: y [M, N] f32, b [N] f32 -> relu(bf16(y + b)) [M, N] bf16."""
+def bias_relu(y, b, y1=None):
+    """E1: y [M, N] f32, b [N] f32 -> relu(bf16(y + b)) [M, N] bf16; with
+    ``y1`` [M, N] f32, relu(bf16((y + y1) + b))."""
     if not y.is_cuda:
-        return plain_bias_relu(y, b)
+        return plain_bias_relu(y, b, y1)
     m, n = _check_2d("y", y, torch.float32, y.device)
     _check_width(n)
     _check("b", b, torch.float32, y.device, (n,))
     _check_aligned(y=y, b=b)
+    if y1 is not None:
+        _check("y1", y1, torch.float32, y.device, (m, n))
+        _check_aligned(y1=y1)
     lib = _lib()
     h = torch.empty((m, n), dtype=BF16, device=y.device)
     with torch.cuda.device(y.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.mlp_epilogue_e1(y.data_ptr(), b.data_ptr(), h.data_ptr(), m,
-                                  n, E1_BLOCKS_PER_SM * _sms(y.device), stream)
+        err = lib.mlp_epilogue_e1(
+            y.data_ptr(), None if y1 is None else y1.data_ptr(), b.data_ptr(),
+            h.data_ptr(), m, n, E1_BLOCKS_PER_SM * _sms(y.device), stream)
     _raise_on(lib, err, "E1")
     launches["E1"] += 1
     return h
@@ -172,18 +185,25 @@ def relu_bwd(dx, h):
     return g, db
 
 
-def heads_relu_bwd(h, heads, split: bool):
+def heads_relu_bwd(h, heads, split: bool, extra=None):
     """E3: h [M, N] bf16 and ``heads``, a list of one or two (hi, lo, w):
     hi, lo [M, k] bf16 (the head's f32 cotangent split), w [N, k] bf16,
-    with k summed over the heads at most :data:`MAX_HEAD_OUTPUTS`. Returns
-    ((hi, lo), db) with ``split``, else ((g,), db) for one head."""
+    with k summed over the heads at most :data:`MAX_HEAD_OUTPUTS`; with
+    ``split`` and one head, ``extra`` [M, N] f32 (a wide head's dX) or None.
+    Returns ((hi, lo), db) with ``split``, else ((g,), db) for one head."""
+    if extra is not None and (not split or len(heads) != 1):
+        raise ValueError("E3 adds a wide head's dX only with split and one "
+                         f"thin head; got {len(heads)} with split={split}")
     if not h.is_cuda:
-        return plain_heads_relu_bwd(h, heads, split)
+        return plain_heads_relu_bwd(h, heads, split, extra)
     m, n = _check_2d("h", h, BF16, h.device)
     _check_width(n)
     if not 1 <= len(heads) <= 2 or (not split and len(heads) != 1):
         raise ValueError(f"E3 takes one head, or two with split; got "
                          f"{len(heads)} with split={split}")
+    if extra is not None:
+        _check("extra", extra, torch.float32, h.device, (m, n))
+        _check_aligned(extra=extra)
     widths = []
     for t, (hi, lo, w) in enumerate(heads):
         k = _check_2d(f"heads[{t}] w", w, BF16, h.device)[1]
@@ -206,7 +226,8 @@ def heads_relu_bwd(h, heads, split: bool):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.mlp_epilogue_e3(
             *ptrs[0], widths[0], *second, widths[-1] if len(heads) == 2 else 0,
-            len(heads), h.data_ptr(), outs[0].data_ptr(),
+            len(heads), h.data_ptr(),
+            None if extra is None else extra.data_ptr(), outs[0].data_ptr(),
             outs[1].data_ptr() if split else None, partial.data_ptr(),
             db.data_ptr(), m, n, blocks, int(split), stream)
     _raise_on(lib, err, "E3")

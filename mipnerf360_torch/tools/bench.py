@@ -75,7 +75,17 @@ def matmul_flops_per_ray(mcfg) -> float:
     """Analytic matmul FLOPs for ONE ray's forward pass (prop + nerf towers,
     num_samples points each; 2 FLOPs per MAC). Backward adds 2x (dgrad +
     wgrad), so a joint-cadence train step is ~3x this. Encode/resample/
-    composite (VPU work) are excluded — this is MFU *of the matmuls*."""
+    composite (VPU work) are excluded — this is MFU *of the matmuls*.
+
+    It counts the repo's layout only: a config with more than one proposal
+    round, another NeRF sample count, a trunk skip or a view branch (the
+    published network, ``garden_paper``) raises ValueError; the benchmark's
+    ``nerfbench/paper.py`` counts that one."""
+    if (mcfg.proposal_rounds != 1 or mcfg.nerf_sample_count != mcfg.num_samples
+            or mcfg.trunk_skip or mcfg.bottleneck_width):
+        raise ValueError(
+            "matmul_flops_per_ray counts the repo's layout (one proposal "
+            "round, no skip, no view branch), not the published network's")
     d_in = mcfg.input_dim
     hp, hn = mcfg.hidden_proposal, mcfg.hidden_nerf
     prop = d_in * hp + (mcfg.proposal_depth - 1) * hp * hp + hp * 1

@@ -9,7 +9,8 @@
   update. Each phase updates only the subtree whose loss it computed.
 
 Loss split:
-  prop phase:  L_prop(stop_grad(nerf t, w) -> bounds, prop w)
+  prop phase:  L_prop(stop_grad(nerf t, w) -> bounds, prop w), summed over
+               the proposal rounds
   nerf phase:  (30 - PSNR) + dist_loss_weight * distortion
 
 Where the JAX package splits its PRNG key, a step here takes explicit
@@ -45,7 +46,7 @@ from ..losses.distillation import distillation_loss
 from ..losses.distortion import distortion_loss
 from ..losses.photometric import photometric_loss
 from ..models.mipnerf360 import (RenderNoise, draw_render_noise, map_params,
-                                 nerf_forward, prop_forward)
+                                 render_rays)
 from ..parallel.collectives import flat_all_reduce
 from ..utils.trace import span
 from .schedule import log_lerp_lr
@@ -74,7 +75,8 @@ def _step_noise(model_cfg, state, rays, noise, randomized, mesh):
         return noise
     b = rays.origins.shape[0]
     full = draw_render_noise(state.generator, b * mesh.data,
-                             model_cfg.num_samples, rays.origins.device)
+                             model_cfg.num_samples, rays.origins.device,
+                             model_cfg.proposal_rounds, model_cfg.nerf_samples)
     rows = slice(mesh.data_index * b, (mesh.data_index + 1) * b)
     return RenderNoise(*(x[rows] for x in full))
 
@@ -85,14 +87,17 @@ def _sum_grads(grads, mesh):
                                                             mesh.data_group)
 
 
-def _forward_both(params, model_cfg, rays, noise: Optional[RenderNoise],
-                  generator, randomized, tp_group=None):
-    n_prop, n_nerf = (None, None) if noise is None else noise
-    t_prop, w_prop = prop_forward(params, model_cfg, rays, randomized,
-                                  noise=n_prop, generator=generator)
-    out = nerf_forward(params, model_cfg, rays, t_prop, w_prop, randomized,
-                       noise=n_nerf, generator=generator, tp_group=tp_group)
-    return t_prop, w_prop, out
+def _distillation(train_cfg, out, data_shards, group):
+    """The distillation loss of every proposal round against the NeRF
+    level's weights, summed over the rounds."""
+    t, w = out["t_vals"].detach(), out["weights"].detach()
+    loss = None
+    for t_prop, w_prop in out["props"]:
+        term = distillation_loss(t, w, t_prop, w_prop,
+                                 collapsed=train_cfg.quirk_collapsed_bounds,
+                                 data_shards=data_shards, group=group)
+        loss = term if loss is None else loss + term
+    return loss
 
 
 def _nerf_losses(train_cfg, out, pixels, group=None):
@@ -111,13 +116,10 @@ def _prop_phase(state: TrainState, model_cfg, train_cfg, rays,
     noise = _step_noise(model_cfg, state, rays, noise, randomized, mesh)
     p = {"prop": state.params["prop"],
          "nerf": map_params(torch.Tensor.detach, state.params["nerf"])}
-    t_prop, w_prop, out = _forward_both(p, model_cfg, rays, noise,
-                                        state.generator, randomized, tp_group)
+    out = render_rays(p, model_cfg, rays, randomized, noise=noise,
+                      generator=state.generator, tp_group=tp_group)
     with span("step.losses"):
-        loss = distillation_loss(
-            out["t_vals"].detach(), out["weights"].detach(), t_prop, w_prop,
-            collapsed=train_cfg.quirk_collapsed_bounds,
-            data_shards=data_shards, group=group)
+        loss = _distillation(train_cfg, out, data_shards, group)
     grads = _sum_grads(torch.autograd.grad(loss, leaves(state.params["prop"])),
                        mesh)
     apply_updates_subtree(state.params["prop"], grads, state.opt_state["prop"],
@@ -134,8 +136,8 @@ def _nerf_phase(state: TrainState, model_cfg, train_cfg, rays, pixels,
     noise = _step_noise(model_cfg, state, rays, noise, randomized, mesh)
     p = {"prop": map_params(torch.Tensor.detach, state.params["prop"]),
          "nerf": state.params["nerf"]}
-    _, _, out = _forward_both(p, model_cfg, rays, noise, state.generator,
-                              randomized, tp_group)
+    out = render_rays(p, model_cfg, rays, randomized, noise=noise,
+                      generator=state.generator, tp_group=tp_group)
     with span("step.losses"):
         loss, aux = _nerf_losses(train_cfg, out, pixels, group)
     grads = _sum_grads(torch.autograd.grad(loss, leaves(state.params["nerf"])),
@@ -196,14 +198,11 @@ def joint_cadence_grads(cfg: Config, state: TrainState, rays: Rays, pixels,
     group, tp_group = _groups(mesh)
     randomized = cfg.train.randomized
     noise = _step_noise(cfg.model, state, rays, noise, randomized, mesh)
-    t_prop, w_prop, out = _forward_both(params, cfg.model, rays, noise,
-                                        state.generator, randomized, tp_group)
+    out = render_rays(params, cfg.model, rays, randomized, noise=noise,
+                      generator=state.generator, tp_group=tp_group)
     with span("step.losses"):
         loss, aux = _nerf_losses(cfg.train, out, pixels, group)
-        loss_prop = distillation_loss(
-            out["t_vals"].detach(), out["weights"].detach(), t_prop, w_prop,
-            collapsed=cfg.train.quirk_collapsed_bounds,
-            data_shards=data_shards, group=group)
+        loss_prop = _distillation(cfg.train, out, data_shards, group)
         loss = loss + loss_prop
     prop, nerf = leaves(params["prop"]), leaves(params["nerf"])
     grads = _sum_grads(torch.autograd.grad(loss, prop + nerf), mesh)

@@ -56,7 +56,6 @@ from __future__ import annotations
 
 import argparse
 import contextlib
-import dataclasses
 import hashlib
 import json
 import math
@@ -447,7 +446,8 @@ def run(seed: int, start: int, out: str, device: str = "cuda",
                         eval_image_every=HORIZON // 100, quality=True,
                         extra_model=model,
                         extra_train={"seed": seed, "lr_max_steps": HORIZON})
-        report["model"] = dataclasses.asdict(cfg.model)
+        # the config.json form: the JAX package's fields, which its side reads
+        report["model"] = json.loads(cfg.to_json())["model"]
         t0 = time.time()
         state = train(cfg, max_steps=start, device=device)
         report["train_s"] = round(time.time() - t0, 1)

@@ -384,9 +384,10 @@ class PortSide:
 
     def _pieces(self, params, r, px, nz, share):
         t = self.cfg.train
-        tpr, wpr, o = tstep._forward_both(
-            params, self.cfg.model, Rays(*map(torch.from_numpy, r)),
-            tm.RenderNoise(*map(torch.from_numpy, nz)), None, True)
+        o = tm.render_rays(
+            params, self.cfg.model, Rays(*map(torch.from_numpy, r)), True,
+            noise=tm.RenderNoise(*map(torch.from_numpy, nz)))
+        tpr, wpr = o["t_prop"], o["w_prop"]
         sse = torch.sum((o["rgb"][..., :3] - torch.from_numpy(px)[..., :3])
                         ** 2)
         dist = distortion_loss(o["s_vals"], o["weights"],
