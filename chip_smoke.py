@@ -4,7 +4,8 @@
 
 Builds every CUDA kernel of ``mipnerf360_torch`` from ``mipnerf360_torch/csrc``
 with ``nvcc``, holds each kernel (K1, the composite forward, and K2, its
-backward) against its plain PyTorch version on the card, then drives the
+backward; E1-E3, the MLP epilogue; ENC and VIEW, the encode) against its
+plain PyTorch version on the card, then drives the
 port's two paths at the full width of the ``synthetic_quality`` preset:
 
 - the render: the synthetic scene's held-out views through ``render_image``;
@@ -70,11 +71,13 @@ port's two paths at the full width of the ``synthetic_quality`` preset:
   CPU.
 
 Each path runs with the kernels' launch counts set to 0 just before it and
-read just after: K1, K2 and E = {E1, E2, E3}, the MLP epilogue kernels
-(phase 3c's own calls count on no path). Where a path's K1 and K2 count its
+read just after: K1, K2 and E = {E1, E2, E3, ENC, VIEW}, the MLP epilogue
+kernels and the encode kernels (phase 3c's and 3d's own calls count on no
+path). Where a path's K1 and K2 count its
 forwards of every level (one K1 a proposal round and one on the NeRF
 level) and its train steps (one K2 a level), E
-must follow from them and the path's model (``_epilogue_want``): the train
+must follow from them and the path's model (``_epilogue_want``: ENC once a
+level of every forward, VIEW once a forward of the view branch): the train
 step, the renders, the trainers, evals and videos, 12a and the demo; the
 rest report E unchecked, and ``tools.scaling``'s rows carry no E. The card is checked against the CPU on the render (the
 synthetic and the garden rays), the train step and LPIPS. Any failure exits
@@ -166,9 +169,9 @@ GARDEN_SETS = ["train.log_every=20", "train.eval_every=60",
 # the preset's batch drawn from the held-out rays, ``apps.train`` for
 # PAPER_STEPS steps with host staging and an image eval at its last step,
 # ``apps.eval`` on every held-out view and ``apps.video`` on
-# GARDEN_VIDEO_POSES poses. Each path's K1, K2 and E1-E3 are counted from 0
-# (K1 three times a forward and K2 three times a step; E1 17 a forward, E2
-# 13 and E3 4 a step).
+# GARDEN_VIDEO_POSES poses. Each path's K1, K2, E1-E3, ENC and VIEW are
+# counted from 0 (K1 and ENC three times a forward, VIEW once, and K2 three
+# times a step; E1 17 a forward, E2 13 and E3 4 a step).
 PAPER_TRAIN_STEPS, PAPER_STEPS = 3, 40
 PAPER_SETS = ["train.log_every=20", "train.eval_every=40",
               "train.eval_image_every=40", "train.lr_max_steps=10000"]
@@ -703,21 +706,182 @@ def check_mlp_epilogue(floor_ms, flush) -> dict:
     return out
 
 
+# Phase 3d: the encode kernels ENC and VIEW at the cells' shapes: a render
+# chunk's level of garden_quality (8,192 rays x 64 samples, 12 scales and
+# the view features in the row: 520 features) with cylinder and with cone
+# rays, and a proposal round of garden_paper (16,384 x 64, cone, 504); VIEW
+# at garden_paper's 16,384 rays. ENC is held to its plain version (bf16
+# within ENC_ULPS of the plain float32 features rounded) and timed as phase
+# 3c times E1-E3, beside both its bounds: the bytes (inputs read once, the
+# output written once) and the issue of ENC_LOOP_INSTRUCTIONS a (row, k,
+# scale) triple (the scale loop's taken path in the SASS of
+# csrc/encode.cu, sm_90a) over every SM's 128 lanes at SM_CLOCK_HZ. "trace"
+# is the mean device time of ENC_TRACE_CALLS launches under torch.profiler.
+# The plain version is timed with CUDA events (it uploads P_BASIS from the
+# host, which a CUDA graph cannot hold).
+ENC_CASES = [("ENC cylinder", 8192, 64, "cylinder", (0, 4), 520),
+             ("ENC cone", 8192, 64, "cone", (0, 4), 520),
+             ("ENC cone paper", 16384, 64, "cone", None, 504)]
+ENC_SCALES, VIEW_RAYS = 12, 16384
+ENC_ULPS = 1
+ENC_LOOP_INSTRUCTIONS = 60
+SM_CLOCK_HZ = 1.98e9
+ENC_TRACE_CALLS = 5
+
+
+def _encode_inputs(n: int, samples: int, seed: int):
+    """``n`` rays of a capture's kind and their sorted t_vals [n, samples +
+    1], on the card: origins around the scene's centre, directions of other
+    lengths than 1, cone radii as pixels give them, edges from 0.05 to 6."""
+    from mipnerf360_torch.core.rays import Rays, rays_map
+
+    rng = np.random.default_rng(seed)
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    ones = np.ones((n, 1), np.float32)
+    rays = Rays(origins=rng.normal(scale=1.5, size=(n, 3)).astype(np.float32),
+                directions=d,
+                viewdirs=(d / np.linalg.norm(d, axis=-1, keepdims=True)
+                          ).astype(np.float32),
+                radii=rng.uniform(5e-4, 2e-3, (n, 1)).astype(np.float32),
+                near=ones * 0.05, far=ones * 6.0)
+    t = np.sort(rng.uniform(0.05, 6.0, (n, samples + 1)), -1)
+    return (rays_map(lambda x: torch.as_tensor(x, device="cuda"), rays),
+            torch.as_tensor(t.astype(np.float32), device="cuda"))
+
+
+def _ulps(got, want) -> torch.Tensor:
+    """|got - want| in bf16 ulps (their bits as ordered integers)."""
+    def ordered(x):
+        bits = x.view(torch.int16).int()
+        return torch.where(bits < 0, -(bits & 0x7FFF), bits & 0x7FFF)
+    return (ordered(got) - ordered(want)).abs()
+
+
+def _event_ms(fn, calls: int = 3, reps: int = 3) -> float:
+    """Median device ms of one ``fn()`` over ``reps`` runs of ``calls``
+    calls between CUDA events (no graph)."""
+    fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return statistics.median(times)
+
+
+def _traced_ms(fn, key: str) -> float:
+    """Mean device ms of the kernels named ``key`` over ENC_TRACE_CALLS
+    calls of ``fn`` under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(ENC_TRACE_CALLS):
+            fn()
+        torch.cuda.synchronize()
+    times = [e.device_time for e in prof.events()
+             if key in e.name and e.device_time > 0]
+    if len(times) != ENC_TRACE_CALLS:
+        _fail(f"the profiler saw {len(times)} {key} launches, expected "
+              f"{ENC_TRACE_CALLS}")
+    return sum(times) / len(times) / 1e3
+
+
+def check_encode(floor_ms, flush) -> dict:
+    """Phase 3d: ENC against its plain version at the cells' shapes, timed
+    hot, cold and traced beside its byte and issue bounds and the plain
+    version's time; then VIEW."""
+    from mipnerf360_torch.core.encoding import P_BASIS, unit_viewdir_enc
+    from mipnerf360_torch.ops import encode
+
+    out = {}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for seed, (tag, n, samples, shape, view_degs, width) in enumerate(
+            ENC_CASES):
+        rays, t = _encode_inputs(n, samples, seed)
+        kw = dict(ray_shape=shape, min_deg=0, max_deg=ENC_SCALES,
+                  view_degs=view_degs, width=width)
+
+        def fn():
+            return encode.encode_points(t, rays, dtype=torch.bfloat16, **kw)
+
+        def plain():
+            return encode.plain_encode_points(t, rays, **kw).to(
+                torch.bfloat16)
+
+        ulps = _ulps(fn(), plain())
+        rows = n * samples
+        print(f"{tag} vs plain: {rows} rows x {width}: "
+              f"{100 * (ulps > 0).float().mean().item():.4f}% of features "
+              f"differ from the plain float32 features rounded, by at most "
+              f"{ulps.max().item()} bf16 ulp", flush=True)
+        if ulps.max().item() > ENC_ULPS:
+            _fail(f"{tag} disagrees with its plain version")
+        del ulps
+        ms = _device_ms(fn, EPILOGUE_CALLS, EPILOGUE_REPS)
+        cold_ms, (q1, q3), _ = _cold_ms(fn, flush, EPILOGUE_CALLS,
+                                        EPILOGUE_REPS)
+        trace_ms = _traced_ms(fn, "encode_points")
+        plain_ms = _event_ms(plain)
+        nbytes = (4 * n * (samples + 1 + 3 + 3 + 1
+                           + (3 if view_degs else 0)) + 2 * rows * width)
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        issue_ms = (rows * len(P_BASIS) * ENC_SCALES * ENC_LOOP_INSTRUCTIONS
+                    / (sms * 128 * SM_CLOCK_HZ) * 1e3)
+        print(f"{tag} time {rows} rows x {width}: hot {ms * 1e3:.1f} us, "
+              f"cold {cold_ms * 1e3:.1f} us (quartiles {q1 * 1e3:.1f}-"
+              f"{q3 * 1e3:.1f}), trace {trace_ms * 1e3:.1f} us, harness "
+              f"floor {floor_ms * 1e3:.3f} us; bounds: bytes "
+              f"{bytes_ms * 1e3:.1f} us ({nbytes / 1e9:.3f} GB), issue "
+              f"{issue_ms * 1e3:.1f} us; {100 * max(bytes_ms, issue_ms) / ms:.1f}"
+              f"% of the larger hot; plain {plain_ms * 1e3:.0f} us "
+              f"({plain_ms / ms:.1f}x)", flush=True)
+        out[f"{tag} {rows}x{width}"] = dict(
+            ms=ms, cold_ms=cold_ms, cold_quartiles_ms=[q1, q3],
+            trace_ms=trace_ms, floor_ms=floor_ms, plain_ms=plain_ms,
+            bytes_ms=bytes_ms, issue_ms=issue_ms)
+        del rays, t
+
+    rays, _ = _encode_inputs(VIEW_RAYS, 1, 7)
+    got = encode.encode_viewdirs(rays.viewdirs, 0, 4, torch.bfloat16)
+    want = unit_viewdir_enc(rays.viewdirs, 0, 4).to(torch.bfloat16)
+    ulps = _ulps(got, want).max().item()
+    ms = _device_ms(lambda: encode.encode_viewdirs(rays.viewdirs, 0, 4,
+                                                   torch.bfloat16))
+    nbytes = 12 * VIEW_RAYS + 2 * got.numel()
+    print(f"VIEW vs plain at {VIEW_RAYS} rays: within {ulps} bf16 ulp; hot "
+          f"{ms * 1e3:.2f} us (bound {nbytes / HBM_BYTES_PER_S * 1e6:.2f} us "
+          f"by bytes; a launch's floor {floor_ms * 1e3:.3f} us)", flush=True)
+    if ulps > ENC_ULPS:
+        _fail("VIEW disagrees with its plain version")
+    out[f"VIEW {VIEW_RAYS}"] = dict(ms=ms, floor_ms=floor_ms,
+                                    bytes_ms=nbytes / HBM_BYTES_PER_S * 1e3)
+    return out
+
+
 def _zero_counts(composite) -> None:
-    """Sets the launch counts of K1, K2 and E1-E3 to 0."""
-    from mipnerf360_torch.ops import mlp_epilogue
+    """Sets the launch counts of K1, K2, E1-E3, ENC and VIEW to 0."""
+    from mipnerf360_torch.ops import encode, mlp_epilogue
 
     composite.launches = composite.bwd_launches = 0
-    for k in mlp_epilogue.launches:
-        mlp_epilogue.launches[k] = 0
+    for counts in (mlp_epilogue.launches, encode.launches):
+        for k in counts:
+            counts[k] = 0
 
 
 def _read_counts(composite) -> tuple:
-    """(K1, K2, {E1, E2, E3}) launches since :func:`_zero_counts`."""
-    from mipnerf360_torch.ops import mlp_epilogue
+    """(K1, K2, {E1, E2, E3, ENC, VIEW}) launches since
+    :func:`_zero_counts`."""
+    from mipnerf360_torch.ops import encode, mlp_epilogue
 
     return (composite.launches, composite.bwd_launches,
-            dict(mlp_epilogue.launches))
+            {**mlp_epilogue.launches, **encode.launches})
 
 
 def _levels(mcfg) -> int:
@@ -745,17 +909,20 @@ def _fused_stacks(mcfg) -> list:
 
 
 def _epilogue_want(mcfg, k1: int, k2: int) -> dict:
-    """E1-E3 launches of a path that launches K1 ``k1`` and K2 ``k2`` times
-    on a model ``mcfg``. A forward of every level (of a train step, an eval
-    batch or a render chunk) launches K1 once a level (:func:`_levels`) and
-    E1 once per hidden layer of each fused stack; a train step's backward K2
-    once a level, E2 once per hidden layer of each fused stack but its last,
-    and E3 once per fused stack."""
+    """E1-E3, ENC and VIEW launches of a path that launches K1 ``k1`` and K2
+    ``k2`` times on a model ``mcfg``. A forward of every level (of a train
+    step, an eval batch or a render chunk) launches K1 and ENC (the factored
+    encode) once a level (:func:`_levels`), VIEW once where the model has
+    the view branch, and E1 once per hidden layer of each fused stack; a
+    train step's backward K2 once a level, E2 once per hidden layer of each
+    fused stack but its last, and E3 once per fused stack."""
     stacks = _fused_stacks(mcfg)
     forwards, steps = k1 // _levels(mcfg), k2 // _levels(mcfg)
     return {"E1": forwards * sum(stacks),
             "E2": steps * sum(d - 1 for d in stacks),
-            "E3": steps * len(stacks)}
+            "E3": steps * len(stacks),
+            "ENC": forwards * _levels(mcfg) * int(mcfg.factored_encode),
+            "VIEW": forwards * int(mcfg.bottleneck_width > 0)}
 
 
 def _kernel_class(name: str) -> str:
@@ -1111,8 +1278,10 @@ def _trainer_launches(cfg, every: dict, test, start: int, end: int):
 def _drive(label: str, composite, want, fn, mcfg=None):
     """``fn()`` with the kernels' launch counts set to 0 just before and
     read just after; fails unless K1 and K2 are ``want``, and, given the
-    path's model ``mcfg``, unless E1-E3 are :func:`_epilogue_want` of it.
-    Returns (what ``fn`` returned, (K1, K2, {E1, E2, E3}), wall seconds)."""
+    path's model ``mcfg``, unless E1-E3, ENC and VIEW are
+    :func:`_epilogue_want` of it.
+    Returns (what ``fn`` returned, (K1, K2, {E1, E2, E3, ENC, VIEW}), wall
+    seconds)."""
     _zero_counts(composite)
     t0 = time.perf_counter()
     out = fn()
@@ -1122,7 +1291,7 @@ def _drive(label: str, composite, want, fn, mcfg=None):
     e_want = None if mcfg is None else _epilogue_want(mcfg, *want)
     print(f"{label}: {wall:.1f} s, start-up included; K1 launches {got[0]}, "
           f"K2 launches {got[1]} (expected {want[0]} and {want[1]}); MLP "
-          f"epilogue launches {got[2]} ("
+          f"epilogue and encode launches {got[2]} ("
           + (f"expected {e_want})" if e_want else "not predicted here)"),
           flush=True)
     if got[:2] != tuple(want):
@@ -2889,6 +3058,7 @@ def main() -> int:
     k1 = check_k1(composite, floor_ms, scratch.zero_)
     k2 = check_k2(composite, floor_ms, scratch.zero_)
     epilogue = check_mlp_epilogue(floor_ms, scratch.zero_)
+    epilogue.update(check_encode(floor_ms, scratch.zero_))
     del scratch
 
     # Phase 4: full-width render of the held-out views.
@@ -3033,11 +3203,11 @@ def main() -> int:
               k2, {name: k[1] for name, k in paths.items()}),
     ]}
 
-    def epilogue_entry(name, key):
+    def epilogue_entry(name, key, source="mlp_epilogue.cu"):
         by_path = {path: k[2][key] for path, k in paths.items()
                    if k[2] is not None}
         return {"name": name, "route": "cuda",
-                "source": "mipnerf360_torch/csrc/mlp_epilogue.cu",
+                "source": f"mipnerf360_torch/csrc/{source}",
                 "replaces": None, "result": "ok",
                 "launches": sum(by_path.values()),
                 "launches_by_path": by_path,
@@ -3048,7 +3218,9 @@ def main() -> int:
     record["kernels"] += [
         epilogue_entry("E1_mlp_bias_relu", "E1"),
         epilogue_entry("E2_mlp_relu_bwd", "E2"),
-        epilogue_entry("E3_mlp_heads_relu_bwd", "E3")]
+        epilogue_entry("E3_mlp_heads_relu_bwd", "E3"),
+        epilogue_entry("ENC_encode_points", "ENC", "encode.cu"),
+        epilogue_entry("VIEW_encode_viewdirs", "VIEW", "encode.cu")]
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

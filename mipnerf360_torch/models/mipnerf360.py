@@ -13,7 +13,10 @@ threads a ``jax.random`` key, the randomized branches here take explicit
 noise tensors (or draw from a ``torch.Generator``). Both composites go through ``ops.fused``: a CUDA tensor
 launches the Hopper kernel K1 (and K2 in the backward), a CPU tensor takes
 its plain version; only the sample-axis render composites the NeRF level
-across ranks, in plain PyTorch (``parallel/sample_axis.py``). The forward
+across ranks, in plain PyTorch (``parallel/sample_axis.py``). The factored
+encode goes through ``ops.encode``: on a CUDA tensor the kernel ENC writes
+the first MLP layer's input in the compute dtype (VIEW the view branch's
+direction features), on a CPU tensor the plain float32 composition. The forward
 functions run under autograd; only ``render_image`` runs under
 ``torch.inference_mode``.
 """
@@ -26,14 +29,13 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..config import ModelConfig
-from ..core.encoding import integrated_pos_enc, unit_viewdir_enc, viewdir_enc
-from ..core.fused_encode import factored_ipe
+from ..core.encoding import integrated_pos_enc
 from ..core.gaussians import cast_rays
 from ..core.rays import Rays, rays_map, rays_to_device, resolve_device
 from ..core.rendering import composite_outputs
 from ..core.sampling import _uniform, sample_along_rays, stratified_jitter
 from ..core.spacing import t_to_s
-from ..ops import fused
+from ..ops import encode, fused
 from ..parallel.collectives import gather_cat
 from ..parallel.mesh import make_mesh, rank_device
 from ..parallel.sample_axis import make_sample_sharded_composite
@@ -151,28 +153,24 @@ def _softplus(x):
 
 
 def _encode(cfg: ModelConfig, rays: Rays, t_vals):
-    """Cast intervals to contracted Gaussians and build MLP input features."""
+    """Cast intervals to contracted Gaussians and build MLP input features:
+    the factored encode through ``ops.encode`` (ENC on the card, in the
+    compute dtype), else the general path in float32."""
+    view_degs = (None if cfg.bottleneck_width
+                 else (cfg.viewdir_min_deg, cfg.viewdir_max_deg))
     with span("model.encode"):
         if cfg.factored_encode:
-            pos = factored_ipe(t_vals, rays.origins, rays.directions,
-                               rays.radii, ray_shape=cfg.ray_shape,
-                               min_deg=cfg.ipe_min_deg,
-                               max_deg=cfg.ipe_max_deg)  # [B, N, 42*scales]
-        else:
-            means, covs = cast_rays(t_vals, rays.origins, rays.directions,
-                                    rays.radii, ray_shape=cfg.ray_shape)
-            pos = integrated_pos_enc(means, covs, cfg.ipe_min_deg,
-                                     cfg.ipe_max_deg)    # [B, N, 42*scales]
-        x = pos
-        if not cfg.bottleneck_width:
-            view = viewdir_enc(rays.viewdirs, cfg.viewdir_min_deg,
-                               cfg.viewdir_max_deg)
-            view = view[..., None, :].expand(pos.shape[:-1] + (view.shape[-1],))
-            x = torch.cat([pos, view], dim=-1)
-        pad = cfg.padded_input_dim - cfg.input_dim
-        if pad:
-            x = torch.cat([x, x.new_zeros(x.shape[:-1] + (pad,))], dim=-1)
-        return x
+            return encode.encode_points(
+                t_vals, rays, ray_shape=cfg.ray_shape,
+                min_deg=cfg.ipe_min_deg, max_deg=cfg.ipe_max_deg,
+                view_degs=view_degs, width=cfg.padded_input_dim,
+                dtype=_compute_dtype(cfg))
+        means, covs = cast_rays(t_vals, rays.origins, rays.directions,
+                                rays.radii, ray_shape=cfg.ray_shape)
+        pos = integrated_pos_enc(means, covs, cfg.ipe_min_deg,
+                                 cfg.ipe_max_deg)    # [B, N, 42*scales]
+        return encode.features(pos, rays.viewdirs, view_degs,
+                               cfg.padded_input_dim)
 
 
 def prop_forward(params: Params, cfg: ModelConfig, rays: Rays,
@@ -296,8 +294,8 @@ def nerf_forward(params: Params, cfg: ModelConfig, rays: Rays, t_vals, weights,
             raise ValueError("the view-branch layout (bottleneck_width > 0) "
                              "has no tensor-parallel or sample-axis path")
         with span("model.encode"):
-            view = unit_viewdir_enc(rays.viewdirs, cfg.viewdir_min_deg,
-                                    cfg.viewdir_max_deg)
+            view = encode.encode_viewdirs(rays.viewdirs, cfg.viewdir_min_deg,
+                                          cfg.viewdir_max_deg, dt)
         tower, args = branch_tower, args + (view,)
     if cfg.remat and torch.is_grad_enabled():
         raw_density, raw_rgb = checkpoint(tower, *args, use_reentrant=False)
