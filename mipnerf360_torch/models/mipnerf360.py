@@ -16,12 +16,15 @@ its plain version; only the sample-axis render composites the NeRF level
 across ranks, in plain PyTorch (``parallel/sample_axis.py``). The factored
 encode goes through ``ops.encode``: on a CUDA tensor the kernel ENC writes
 the first MLP layer's input in the compute dtype (VIEW the view branch's
-direction features), on a CPU tensor the plain float32 composition. The forward
-functions run under autograd; only ``render_image`` runs under
+direction features), on a CPU tensor the plain float32 composition. The
+MLPs, the NeRF level's one tower with its layout as data, go through
+``models/mlp.py``, which alone chooses the card's fused stack or the chain.
+The forward functions run under autograd; only ``render_image`` runs under
 ``torch.inference_mode``.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, NamedTuple, Optional
 
 import torch
@@ -40,8 +43,8 @@ from ..parallel.collectives import gather_cat
 from ..parallel.mesh import make_mesh, rank_device
 from ..parallel.sample_axis import make_sample_sharded_composite
 from ..utils.trace import span
-from .mlp import (ACTIVATIONS, Extra, apply_linear, apply_mlp,
-                  fused_relu_stack, init_linear, init_mlp, relu_stack_heads)
+from .mlp import (ACTIVATIONS, Extra, apply_mlp, apply_tower, init_linear,
+                  init_mlp)
 
 Params = Dict[str, Any]
 
@@ -147,9 +150,7 @@ def _trunk_activations(cfg: ModelConfig):
     return ["relu"] * (cfg.nerf_depth - 1) + [final]
 
 
-def _softplus(x):
-    """``jax.nn.softplus``, which is ``logaddexp(x, 0)``."""
-    return torch.logaddexp(x, torch.zeros_like(x))
+_softplus = ACTIVATIONS["softplus"]  # jax.nn.softplus: logaddexp(x, 0)
 
 
 def _encode(cfg: ModelConfig, rays: Rays, t_vals):
@@ -218,7 +219,7 @@ def nerf_forward(params: Params, cfg: ModelConfig, rays: Rays, t_vals, weights,
                  composite_fn=None, tp_group=None):
     """NeRF level: resample -> encode -> trunk -> heads -> composite.
 
-    With ``cfg.remat`` the tower (trunk and heads) runs under
+    With ``cfg.remat`` the tower (trunk, heads, view branch) runs under
     ``torch.utils.checkpoint``, the port's ``jax.checkpoint``: its
     activations are not kept for the backward but recomputed there.
 
@@ -242,53 +243,26 @@ def nerf_forward(params: Params, cfg: ModelConfig, rays: Rays, t_vals, weights,
     x = _encode(cfg, rays, new_t)
     dt = _compute_dtype(cfg)
 
-    density_act = "sigmoid" if cfg.density_head_sigmoid else "none"
+    def tower(nerf, x, view):
+        """The trunk under the density and rgb heads, or under the density
+        head and the bottleneck, with the view branch (``view``) on it."""
+        branch = "rgb" if view is None else "bottleneck"
+        y_density, y = apply_tower(
+            nerf["trunk"], [nerf[k]["layers"][0] for k in ("density", branch)],
+            x, _trunk_activations(cfg), dt, tp_group,
+            extras=[Extra(i) for i in cfg.skip_layers],
+            rounded_head=view is not None)
+        with span("model.mlp"):
+            raw_density = ACTIVATIONS[
+                "sigmoid" if cfg.density_head_sigmoid else "none"](y_density)
+            if view is None:
+                return raw_density, torch.sigmoid(y)
+            view = view.to(dt)[..., None, :].expand(
+                x.shape[:-1] + view.shape[-1:])
+            return raw_density, apply_mlp(nerf["rgb"], y, ["relu", "sigmoid"],
+                                          dt, extras=[Extra(0, view)])
 
-    def branch_tower(nerf, x, view):
-        """The published layout: the trunk with its skips under the density
-        head and the bottleneck (read in bf16), then the view branch with
-        the direction encoding of each sample's ray."""
-        trunk = nerf["trunk"]["layers"]
-        heads = [nerf["density"]["layers"][0], nerf["bottleneck"]["layers"][0]]
-        skips = [Extra(i) for i in cfg.skip_layers]
-        acts = _trunk_activations(cfg)
-        if fused_relu_stack(x, dt, None, trunk, acts, heads, True, skips):
-            with span("model.mlp"):
-                y_density, bottleneck = relu_stack_heads(
-                    trunk, heads, x, split=True, rounded_head=True,
-                    extras=skips)
-                y_density = ACTIVATIONS[density_act](y_density)
-        else:
-            feat = apply_mlp(nerf["trunk"], x, acts, dt, extras=skips)
-            y_density = apply_mlp(nerf["density"], feat, [density_act], dt)
-            with span("model.mlp"):
-                bottleneck = apply_linear(heads[1], feat, dt,
-                                          g_rounded=True).to(dt)
-        view = view.to(dt)[..., None, :].expand(x.shape[:-1] + view.shape[-1:])
-        raw_rgb = apply_mlp(nerf["rgb"], bottleneck, ["relu", "sigmoid"], dt,
-                            extras=[Extra(0, view)])
-        return y_density, raw_rgb
-
-    def tower(nerf, x):
-        heads = [nerf["density"]["layers"], nerf["rgb"]["layers"]]
-        if all(len(h) == 1 for h in heads):
-            heads = [h[0] for h in heads]
-            if fused_relu_stack(x, dt, tp_group, nerf["trunk"]["layers"],
-                                _trunk_activations(cfg), heads):
-                # the trunk's last output feeds only the heads: one bf16
-                # copy of it; the heads' gradients meet in f32 in the stack
-                with span("model.mlp"):
-                    y_density, y_rgb = relu_stack_heads(
-                        nerf["trunk"]["layers"], heads, x, split=True)
-                    return (ACTIVATIONS[density_act](y_density),
-                            torch.sigmoid(y_rgb))
-        feat = apply_mlp(nerf["trunk"], x, _trunk_activations(cfg), dt,
-                         tp_group=tp_group)
-        raw_density = apply_mlp(nerf["density"], feat, [density_act], dt)
-        raw_rgb = apply_mlp(nerf["rgb"], feat, ["sigmoid"], dt)
-        return raw_density, raw_rgb
-
-    args = (params["nerf"], x)
+    view = None
     if cfg.bottleneck_width:
         if composite_fn is not None or tp_group is not None:
             raise ValueError("the view-branch layout (bottleneck_width > 0) "
@@ -296,11 +270,9 @@ def nerf_forward(params: Params, cfg: ModelConfig, rays: Rays, t_vals, weights,
         with span("model.encode"):
             view = encode.encode_viewdirs(rays.viewdirs, cfg.viewdir_min_deg,
                                           cfg.viewdir_max_deg, dt)
-        tower, args = branch_tower, args + (view,)
     if cfg.remat and torch.is_grad_enabled():
-        raw_density, raw_rgb = checkpoint(tower, *args, use_reentrant=False)
-    else:
-        raw_density, raw_rgb = tower(*args)
+        tower = functools.partial(checkpoint, tower, use_reentrant=False)
+    raw_density, raw_rgb = tower(params["nerf"], x, view)
 
     with span("model.composite"):
         rgb = raw_rgb * (1.0 + 2.0 * cfg.rgb_padding) - cfg.rgb_padding

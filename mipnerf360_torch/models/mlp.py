@@ -29,6 +29,8 @@ trunk with its density and rgb heads) runs as one autograd Function whose
 epilogue around each cuBLAS GEMM is a hand-written kernel
 (``ops/mlp_epilogue.py``: E1 forward, E2 and E3 backward): the same
 arithmetic as the layer-by-layer chain, one pass over each activation.
+:func:`apply_mlp` and :func:`apply_tower` (the NeRF trunk under its heads)
+alone choose between the two, by :func:`fused_relu_stack`.
 
 A hidden layer may take a second input (:class:`Extra`: the published
 trunk's skip, the view branch's direction encoding) as a second product
@@ -260,6 +262,31 @@ def apply_mlp(params, x, activations: Sequence[str],
         if tp_group is not None and len(layers) % 2:
             x = gather(x, tp_group, dim=-1, sum_backward=False)
         return x.to(torch.float32)
+
+
+def apply_tower(params, heads, x, activations: Sequence[str],
+                compute_dtype=torch.bfloat16, tp_group=None,
+                extras: Sequence[Extra] = (), rounded_head: bool = False):
+    """The trunk ``params`` (the rest as in :func:`apply_mlp`) under
+    ``heads``, one linear layer each; returns each head's f32
+    pre-activation, the last one's rounded to ``compute_dtype`` with
+    ``rounded_head`` (the published bottleneck). :func:`relu_stack_heads`
+    with ``split`` where :func:`fused_relu_stack` takes the layers, else the
+    chain: :func:`apply_mlp`, then each head on its f32 output."""
+    layers = params["layers"]
+    with span("model.mlp"):
+        if fused_relu_stack(x, compute_dtype, tp_group, layers, activations,
+                            heads, rounded_head, extras):
+            return relu_stack_heads(layers, heads, x, split=True,
+                                    rounded_head=rounded_head, extras=extras)
+        feat = apply_mlp(params, x, activations, compute_dtype, tp_group,
+                         extras)
+        thin = heads[:-1] if rounded_head else heads
+        ys = [apply_linear(h, feat, compute_dtype) for h in thin]
+        if rounded_head:
+            ys.append(apply_linear(heads[-1], feat, compute_dtype,
+                                   g_rounded=True).to(compute_dtype))
+        return ys
 
 
 def fused_relu_stack(x, compute_dtype, tp_group, hidden, hidden_activations,

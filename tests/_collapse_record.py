@@ -45,8 +45,9 @@ of the train bank drawn once with ``PROBE_SEED``, deterministic):
   that layer's update on the before state's input of that layer
   (``rel_own``).
 
-The layers are seen by wrapping ``models/mlp.py::apply_linear`` and the
-model's ``apply_mlp`` from outside (:class:`TrunkTap`). The self-check
+The layers are seen by wrapping ``models/mlp.py``'s ``apply_linear`` and
+``apply_mlp``, which the NeRF tower calls, from outside (:class:`TrunkTap`).
+The self-check
 (:data:`SELF_CHECK`): seed 0's ``loss_prop`` at step 2,145 and seed 1's at
 1,032 lie within 1% of the spike replay's; if not, the record says so and
 stops.
@@ -158,19 +159,25 @@ def unit_stats(pre: torch.Tensor, post: torch.Tensor) -> dict:
 
 class TrunkTap:
     """The NeRF trunk's and the density head's layer statistics in every
-    forward run under :meth:`active`, seen by wrapping
-    ``models/mlp.py::apply_linear`` and the model's ``apply_mlp`` from
-    outside; the trunk and the head are told apart by their params.
+    forward run under :meth:`active` (``model``: the ``ModelConfig``), seen
+    by wrapping ``models/mlp.py``'s ``apply_linear`` and ``apply_mlp``, which
+    the tower (``apply_tower``) calls, from outside; the trunk and the head
+    are told apart by their params.
 
     A layer's pre-activation is ``apply_linear``'s f32 result; its output
-    the next layer's input (the last layer's: ``apply_mlp``'s result).
-    ``keep``: also keep the trunk's input and each layer's output. While
-    the tap is on, the tower takes that layer-by-layer chain on the card
-    too, not the fused stack (``models/mlp.py::relu_stack_heads``), whose
-    values are the same and whose layers no wrapper sees."""
+    the next layer's input (the trunk's last layer's: ``apply_mlp``'s
+    result; the density head's: its activation). ``keep``: also keep the
+    trunk's input and each layer's output. While the tap is on, every MLP
+    takes that layer-by-layer chain on the card too
+    (``models/mlp.py::fused_relu_stack`` says no), not the fused stack
+    (``relu_stack_heads``), whose values are the same and whose layers no
+    wrapper sees."""
 
-    def __init__(self, nerf, density_bias: float, keep: bool = False):
-        self.nerf, self.density_bias, self.keep = nerf, density_bias, keep
+    def __init__(self, nerf, model, keep: bool = False):
+        self.nerf, self.keep = nerf, keep
+        self.density_bias = model.density_bias
+        self.density_act = mlp.ACTIVATIONS[
+            "sigmoid" if model.density_head_sigmoid else "none"]
         self.trunk, self.head, self.density = [], None, None
         self.trunk_input, self.outputs = None, []
         self._pending = self._into = None
@@ -181,51 +188,49 @@ class TrunkTap:
             self.outputs.append(post)
         self._pending = None
 
+    def _density_head(self, y):
+        out = self.density_act(y).to(torch.float32)
+        self.head = unit_stats(y, out)
+        z = out[..., 0] + self.density_bias
+        self.density = {"pre": value_stats(z),
+                        "softplus": value_stats(model_mod._softplus(z))}
+
     @contextlib.contextmanager
     def active(self):
-        orig_linear, orig_mlp = mlp.apply_linear, model_mod.apply_mlp
+        orig = mlp.apply_linear, mlp.apply_mlp, mlp.fused_relu_stack
+        orig_linear, orig_mlp = orig[:2]
 
         def linear(layer, x, *args, **kw):
             y = orig_linear(layer, x, *args, **kw)
-            if self._into is not None:
+            if layer is self.nerf["density"]["layers"][0]:
+                self._density_head(y)
+            elif self._into is not None:
                 if self._pending is not None:
                     self._close_layer(x)
                 self._pending = y
             return y
 
         def apply_mlp(params, x, *args, **kw):
-            nerf = self.nerf
-            into = (self.trunk if params is nerf["trunk"] else [] if params
-                    is nerf["density"] else None)
-            if into is None:
+            if params is not self.nerf["trunk"]:
                 return orig_mlp(params, x, *args, **kw)
-            if into is self.trunk:
-                self.trunk.clear()
-                self.outputs.clear()
-                if self.keep:
-                    self.trunk_input = x
-            self._into = into
+            self.trunk.clear()
+            self.outputs.clear()
+            if self.keep:
+                self.trunk_input = x
+            self._into = self.trunk
             try:
                 out = orig_mlp(params, x, *args, **kw)
                 self._close_layer(out)
             finally:
                 self._into = self._pending = None
-            if into is not self.trunk:
-                self.head = into[0]
-                z = out[..., 0] + self.density_bias
-                self.density = {"pre": value_stats(z),
-                                "softplus": value_stats(
-                                    model_mod._softplus(z))}
             return out
 
-        orig_fused = model_mod.fused_relu_stack
-        mlp.apply_linear, model_mod.apply_mlp = linear, apply_mlp
-        model_mod.fused_relu_stack = lambda *args: False
+        mlp.apply_linear, mlp.apply_mlp = linear, apply_mlp
+        mlp.fused_relu_stack = lambda *args: False
         try:
             yield self
         finally:
-            mlp.apply_linear, model_mod.apply_mlp = orig_linear, orig_mlp
-            model_mod.fused_relu_stack = orig_fused
+            mlp.apply_linear, mlp.apply_mlp, mlp.fused_relu_stack = orig
 
     def stats(self) -> dict:
         return {"trunk": list(self.trunk), "density_head": self.head,
@@ -238,22 +243,19 @@ def _dtype(cfg):
 
 def tower_stats(cfg, nerf, x) -> dict:
     """The tap's statistics of the trunk and the density head on NeRF-level
-    features ``x``, through the model's ``apply_mlp`` as ``nerf_forward``
-    calls it."""
-    tap = TrunkTap(nerf, cfg.model.density_bias)
-    head = ["sigmoid" if cfg.model.density_head_sigmoid else "none"]
+    features ``x``, through ``models/mlp.py::apply_tower`` as
+    ``nerf_forward`` calls it (the density head alone under the trunk)."""
+    tap = TrunkTap(nerf, cfg.model)
     with torch.no_grad(), tap.active():
-        feat = model_mod.apply_mlp(nerf["trunk"], x,
-                                   model_mod._trunk_activations(cfg.model),
-                                   _dtype(cfg))
-        model_mod.apply_mlp(nerf["density"], feat, head, _dtype(cfg))
+        mlp.apply_tower(nerf["trunk"], nerf["density"]["layers"], x,
+                        model_mod._trunk_activations(cfg.model), _dtype(cfg))
     return tap.stats()
 
 
 def forward_stats(cfg, params, rays, randomized: bool, noise=None,
                   keep: bool = False):
     """(statistics, tap) of one forward of both levels under no_grad."""
-    tap = TrunkTap(params["nerf"], cfg.model.density_bias, keep=keep)
+    tap = TrunkTap(params["nerf"], cfg.model, keep=keep)
     with torch.no_grad(), tap.active():
         out = model_mod.render_rays(params, cfg.model, rays, randomized,
                                     noise=noise)
@@ -275,10 +277,10 @@ def output_change(cfg, before, after, tap_before) -> list:
     on the before state's features (``rel``); the after state's layer alone
     on the before state's input of that layer (``rel_own``)."""
     acts = model_mod._trunk_activations(cfg.model)
-    tap = TrunkTap(after["nerf"], cfg.model.density_bias, keep=True)
+    tap = TrunkTap(after["nerf"], cfg.model, keep=True)
     with torch.no_grad(), tap.active():
-        model_mod.apply_mlp(after["nerf"]["trunk"], tap_before.trunk_input,
-                            acts, _dtype(cfg))
+        mlp.apply_mlp(after["nerf"]["trunk"], tap_before.trunk_input, acts,
+                      _dtype(cfg))
     out = []
     ins = [tap_before.trunk_input] + tap_before.outputs[:-1]
     pairs = zip(before["nerf"]["trunk"]["layers"],

@@ -451,7 +451,6 @@ def test_garden_step_launches_and_matches_the_unfused_chain(cuda, monkeypatch):
     fused, aux = _step(cfg, state, rays, pixels, noise)
     assert {k: epi.launches[k] - before[k] for k in before} == {
         "E1": 12, "E2": 10, "E3": 2}
-    monkeypatch.setattr(tm, "fused_relu_stack", lambda *a: False)
     monkeypatch.setattr(tmlp, "fused_relu_stack", lambda *a: False)
     before = dict(epi.launches)
     chain, aux_chain = _step(cfg, state, rays, pixels, noise)

@@ -13,7 +13,8 @@ On the CPU, at a small size of the same topology:
   against the chain they replace, and the fused stacks of the layout (the
   trunk with its skip under the density head and the bottleneck; the view
   branch with its direction encoding once a ray) against that chain, bit
-  for bit (bias gradients to summation order);
+  for bit (bias gradients to summation order), and so ``nerf_forward``'s
+  fused wiring in this layout and the repo's;
 - the spans the layout opens, the step's noise, the benchmark's weights,
   counts and cell at a tiny size.
 
@@ -448,31 +449,79 @@ def _same(fused, chain, n_in):
 
 
 @pytest.mark.parametrize("m", [64, 37])
-def test_fused_trunk_with_skip_and_bottleneck_matches_the_chain(card_chain, m):
+def test_fused_trunk_with_skip_and_bottleneck_matches_the_chain(
+        card_chain, monkeypatch, m):
     """The published trunk at 3 ReLU layers of 64 with the skip into the
     third, under a density head (1) and a wide bottleneck (16) read in
-    bf16: outputs, weight gradients and the input-free chain bit for bit."""
+    bf16, through ``apply_tower``'s fused stack and its chain: outputs,
+    weight gradients and the input-free chain bit for bit."""
     d = 24
     trunk = [_layers([d, 64], 1)[0], _layers([64, 64], 2)[0],
              _layers([64 + d, 64], 3)[0]]
     heads = _layers([64, 1], 4) + _layers([64, 16], 5)
     x = _normal((m, d), 6)
     r = [_normal((m, 1), 7), _normal((m, 16), 8)]
-    skips = [tmlp.Extra(2)]
 
-    def chain(ls, xx):
-        feat = tmlp.apply_mlp({"layers": ls[:3]}, xx, ["relu"] * 3, BF16,
-                              extras=skips)
-        dens = tmlp.apply_mlp({"layers": ls[3:4]}, feat, ["none"], BF16)
-        bn = tmlp.apply_linear(ls[4], feat, BF16, g_rounded=True).to(BF16)
-        return [dens, bn]
+    def tower(ls, xx):
+        return tmlp.apply_tower({"layers": ls[:3]}, ls[3:], xx, ["relu"] * 3,
+                                BF16, extras=[tmlp.Extra(2)],
+                                rounded_head=True)
 
-    def fused(ls, xx):
-        return tmlp.relu_stack_heads(ls[:3], ls[3:], xx, split=True,
-                                     rounded_head=True, extras=skips)
+    chain = _grads(tower, trunk + heads, [x], r)
+    monkeypatch.setattr(tmlp, "fused_relu_stack", lambda *a, **k: True)
+    _same(_grads(tower, trunk + heads, [x], r), chain, 0)
 
-    _same(_grads(fused, trunk + heads, [x], r),
-          _grads(chain, trunk + heads, [x], r), 0)
+
+@pytest.mark.parametrize("preset", ["garden_quality", "garden_paper"])
+def test_nerf_forward_fused_wiring_matches_the_chain(card_chain, monkeypatch,
+                                                     preset):
+    """``nerf_forward`` of the repo's layout and the published one, at
+    small widths the kernels take, with ``models/mlp.py::fused_relu_stack``
+    forced True (the tower, and the view branch, through the plain E1-E3)
+    against the chain: the model's fused wiring (its heads, the rounded
+    bottleneck, the skip, the view branch) under the card's GEMM backward.
+    Outputs and weight gradients bit for bit, bias gradients to summation
+    order."""
+    m = dataclasses.replace(
+        get_config(preset).model, num_samples=8, nerf_samples=4,
+        hidden_proposal=16, proposal_depth=2, hidden_nerf=32, nerf_depth=4,
+        ipe_max_deg=2, compute_dtype="bfloat16",
+        **(dict(trunk_skip=2, bottleneck_width=8, viewdir_width=16)
+           if preset == "garden_paper" else {}))
+    params = tm.init_model(m, torch.Generator().manual_seed(5))
+    rays = _rays(12, 7)
+    t = torch.sort(torch.rand(12, m.num_samples + 1,
+                              generator=torch.Generator().manual_seed(8))
+                   * 4 + 2, -1).values
+    w = torch.rand(12, m.num_samples,
+                   generator=torch.Generator().manual_seed(9))
+
+    def run():
+        tree = tm.map_params(lambda p: p.clone().requires_grad_(), params)
+        out = tm.nerf_forward(tree, m, rays, t, w, False)
+        loss = ((out["rgb"] ** 2).sum() + out["acc"].sum()
+                + out["distance"].sum())
+        leaves = weights.leaves(tree["nerf"])
+        g = torch.autograd.grad(loss, [v for _, v in leaves])
+        return out, dict(zip([k for k, _ in leaves], g))
+
+    stacks, orig = [], tmlp.relu_stack_heads
+    monkeypatch.setattr(tmlp, "relu_stack_heads", lambda hidden, heads, *a,
+                        **k: stacks.append(len(heads)) or orig(hidden, heads,
+                                                               *a, **k))
+    o_c, g_c = run()
+    assert stacks == []
+    monkeypatch.setattr(tmlp, "fused_relu_stack", lambda *a, **k: True)
+    o_f, g_f = run()
+    # the trunk under its two heads, then the view branch under the rgb head
+    assert stacks == ([2, 1] if preset == "garden_paper" else [2])
+    for k in ("rgb", "acc", "weights", "distance"):
+        assert torch.equal(o_f[k], o_c[k]), k
+    for k in g_f:
+        if k.endswith(".w"):
+            assert torch.equal(g_f[k], g_c[k]), k
+        else:
+            torch.testing.assert_close(g_f[k], g_c[k], rtol=1e-5, atol=1e-6)
 
 
 @pytest.mark.parametrize("samples", [4, 1])
@@ -710,7 +759,6 @@ def test_paper_tower_is_the_chain_bit_for_bit_on_card(cuda, monkeypatch):
 
     def run(fused):
         if not fused:
-            monkeypatch.setattr(tm, "fused_relu_stack", lambda *a, **k: False)
             monkeypatch.setattr(tmlp, "fused_relu_stack",
                                 lambda *a, **k: False)
         tree = tm.map_params(lambda p: p.detach().clone().requires_grad_(),
@@ -755,7 +803,6 @@ def test_garden_paper_step_launches_seventeen_e1(cuda, monkeypatch):
     fused, aux = joint_cadence_grads(cfg, state, rays, pixels, noise=noise)
     assert {k: epi.launches[k] - before[k] for k in before} == {
         "E1": 17, "E2": 13, "E3": 4}
-    monkeypatch.setattr(tm, "fused_relu_stack", lambda *a, **k: False)
     monkeypatch.setattr(tmlp, "fused_relu_stack", lambda *a, **k: False)
     chain, aux_chain = joint_cadence_grads(cfg, state, rays, pixels,
                                            noise=noise)
