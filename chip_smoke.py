@@ -4,8 +4,9 @@
 
 Builds every CUDA kernel of ``mipnerf360_torch`` from ``mipnerf360_torch/csrc``
 with ``nvcc``, holds each kernel (K1, the composite forward, and K2, its
-backward; E1-E3, the MLP epilogue; ENC and VIEW, the encode) against its
-plain PyTorch version on the card, then drives the
+backward; G1, the MLP forward's GEMM; E1-E3, the MLP epilogue; ENC and
+VIEW, the encode) against its plain PyTorch version on the card, then
+drives the
 port's two paths at the full width of the ``synthetic_quality`` preset:
 
 - the render: the synthetic scene's held-out views through ``render_image``;
@@ -71,13 +72,14 @@ port's two paths at the full width of the ``synthetic_quality`` preset:
   CPU.
 
 Each path runs with the kernels' launch counts set to 0 just before it and
-read just after: K1, K2 and E = {E1, E2, E3, ENC, VIEW}, the MLP epilogue
-kernels and the encode kernels (phase 3c's and 3d's own calls count on no
-path). Where a path's K1 and K2 count its
+read just after: K1, K2 and E = {G1, E1, E2, E3, ENC, VIEW}, the MLP
+forward GEMM, the MLP epilogue kernels and the encode kernels (phase 3c's,
+3d's and 3e's own calls count on no path). Where a path's K1 and K2 count its
 forwards of every level (one K1 a proposal round and one on the NeRF
 level) and its train steps (one K2 a level), E
 must follow from them and the path's model (``_epilogue_want``: ENC once a
-level of every forward, VIEW once a forward of the view branch): the train
+level of every forward, VIEW once a forward of the view branch, G1 on
+each fused hidden layer whose inputs TMA reads, E1 on the rest): the train
 step, the renders, the trainers, evals and videos, 12a and the demo; the
 rest report E unchecked, and ``tools.scaling``'s rows carry no E. The card is checked against the CPU on the render (the
 synthetic and the garden rays), the train step and LPIPS. Any failure exits
@@ -599,6 +601,9 @@ EPILOGUE_ROWS = 4096 * 64
 PAPER_ROWS = 16384 * 32
 EPILOGUE_CALLS, EPILOGUE_REPS = 10, 11
 EPILOGUE_DB_RTOL = 1e-6
+# Checked, not timed: no path runs E1 at the skip layer since G1 (phase 3e)
+# takes it.
+EPILOGUE_UNTIMED = {("E1 second input", 1024)}
 
 
 def _epilogue_cases(epi, n: int):
@@ -689,6 +694,8 @@ def check_mlp_epilogue(floor_ms, flush) -> dict:
             if not ok:
                 _fail(f"{tag} disagrees with its plain version at N={n}")
             del got, want
+            if (tag, n) in EPILOGUE_UNTIMED:
+                continue
             ms = _device_ms(lambda: fn(*args), EPILOGUE_CALLS, EPILOGUE_REPS)
             plain_ms = _device_ms(lambda: plain(*args), EPILOGUE_CALLS,
                                   EPILOGUE_REPS)
@@ -865,23 +872,163 @@ def check_encode(floor_ms, flush) -> dict:
     return out
 
 
+# Phase 3e: G1, the MLP forward's GEMM with the bias, bf16 rounding and ReLU
+# in its epilogue (csrc/mlp_gemm.cu), at the layers the main path gives it:
+# a train step's (4096 rays x 64 samples: [262,144 x 1,024] @ [1,024 x
+# 1,024] on the NeRF level, 256 on the proposal, and the NeRF level's first
+# layer with its K tail of 520 features, which TMA's boxes fill with zeros),
+# a garden_paper step's skip layer (16,384 rays x 32 samples, 1,024 + 504
+# features through the second pair of tensor maps), a garden_paper proposal
+# round's first layer (16,384 x 64 rows, 504 features), which is also the
+# row count of a render chunk's NeRF level, and the parity presets' 64 rays x
+# 64 samples (M = 4,096: fewer tiles than SMs). Each case is (M, input
+# widths, N). Held to its plain version: each output within one bf16 ulp, or
+# within 2^-21 of the sum of |x||w| where the f32 sum nearly cancels (the
+# kernel sums in another order than cuBLAS, and the skip layer's two
+# products in one sum), and at most G1_DIFFER of them differing. Timed as
+# phase 3c times E1-E3, beside its bound (the larger of the operations at
+# the bf16 peak and the bytes: the inputs and w read and the output written
+# once), the chain it replaces (cuBLAS's f32-output GEMM of each input, then
+# E1) and those GEMMs alone (library_ms). Then the host's time per layer:
+# a layer routed through G1 against the chain, at G1_HOST_ROWS rows, where
+# the device's time is a few microseconds and a loop of calls runs at the
+# host's pace.
+G1_CASES = [(262144, (1024,), 1024), (262144, (256,), 256),
+            (262144, (520,), 1024), (524288, (1024, 504), 1024),
+            (1048576, (504,), 256), (4096, (1024,), 1024),
+            (4096, (256,), 256)]
+G1_CALLS, G1_REPS = 10, 11
+G1_DIFFER = 0.01
+G1_HOST_ROWS, G1_HOST_CALLS = 128, 2000
+BF16_FLOPS_PER_S = 989e12
+
+
+def _host_us(fn, calls: int) -> float:
+    """Microseconds a call of ``fn`` on the host's clock, over ``calls``
+    calls in a loop ended by one synchronisation."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / calls * 1e6
+
+
+def check_g1(floor_ms, flush) -> dict:
+    """Phase 3e: G1 against its plain version, then timed hot and cold
+    beside its bound, the chain it replaces and cuBLAS's GEMM alone; then
+    the host's time per layer, routed through G1 and through the chain."""
+    from mipnerf360_torch.models import mlp as tmlp
+    from mipnerf360_torch.ops import mlp_epilogue as epi
+    from mipnerf360_torch.ops import mlp_gemm
+
+    def products(xs, w):
+        k = xs[0].shape[1]
+        return [mlp_gemm.mm_f32(xs[0], w[:k])] + [
+            mlp_gemm.mm_f32(x1, w[k:]) for x1 in xs[1:]]
+
+    def chain(xs, w, b):
+        ys = products(xs, w)
+        return epi.bias_relu(ys[0], b, *ys[1:])
+
+    out = {}
+    for m, ks, n in G1_CASES:
+        gen = torch.Generator("cuda").manual_seed(m + n + len(ks))
+        xs = [torch.randn(m, k, generator=gen, device="cuda").to(
+            torch.bfloat16) for k in ks]
+        w = (torch.randn(sum(ks), n, generator=gen, device="cuda")
+             * sum(ks) ** -0.5).to(torch.bfloat16)
+        b = torch.randn(n, generator=gen, device="cuda") * 0.1
+        shape = f"M={m} K={'+'.join(map(str, ks))} N={n}"
+        got = mlp_gemm.bias_relu(xs[0], w, b, *xs[1:]).float()
+        want = mlp_gemm.plain_bias_relu(xs[0], w, b, *xs[1:]).float()
+        big = torch.maximum(got.abs(), want.abs()).clamp_min(2.0 ** -126)
+        ulp = torch.ldexp(torch.ones_like(big), torch.frexp(big).exponent - 8)
+        tol = ulp
+        k0 = 0
+        for x in xs:
+            tol = tol + 2.0 ** -21 * (x.float().abs()
+                                      @ w[k0:k0 + x.shape[1]].float().abs())
+            k0 += x.shape[1]
+        within = bool(((got - want).abs() <= tol).all())
+        differ = (got != want).float().mean().item()
+        print(f"G1 vs plain {shape}: outputs differing {differ:.2e}, "
+              f"{'all' if within else 'NOT all'} within a bf16 ulp or the "
+              "f32 sums' error", flush=True)
+        if not within or differ > G1_DIFFER:
+            _fail(f"G1 disagrees with its plain version at {shape}")
+        del got, want, big, ulp, tol
+        ms = _device_ms(lambda: mlp_gemm.bias_relu(xs[0], w, b, *xs[1:]),
+                        G1_CALLS, G1_REPS)
+        chain_ms = _device_ms(lambda: chain(xs, w, b), G1_CALLS, G1_REPS)
+        library_ms = _device_ms(lambda: products(xs, w), G1_CALLS, G1_REPS)
+        plain_ms = _device_ms(
+            lambda: mlp_gemm.plain_bias_relu(xs[0], w, b, *xs[1:]), G1_CALLS,
+            G1_REPS)
+        cold_ms, (q1, q3), _ = _cold_ms(
+            lambda: mlp_gemm.bias_relu(xs[0], w, b, *xs[1:]), flush, G1_CALLS,
+            G1_REPS)
+        flops_ms = 2 * m * sum(ks) * n / BF16_FLOPS_PER_S * 1e3
+        bytes_ms = (2 * (m * sum(ks) + sum(ks) * n + m * n) + 4 * n
+                    ) / HBM_BYTES_PER_S * 1e3
+        bound_ms, by = max((flops_ms, "operations"), (bytes_ms, "bytes"))
+        print(f"G1 time {shape}: hot {ms * 1e3:.1f} us, cold "
+              f"{cold_ms * 1e3:.1f} us (quartiles {q1 * 1e3:.1f}-"
+              f"{q3 * 1e3:.1f}); bound {bound_ms * 1e3:.1f} us by {by} "
+              f"({100 * bound_ms / ms:.1f}% of it hot); the chain it replaces "
+              f"(cuBLAS f32 GEMM + E1) {chain_ms * 1e3:.1f} us, the GEMM "
+              f"alone {library_ms * 1e3:.1f} us; plain {plain_ms * 1e3:.1f} "
+              f"us; harness floor {floor_ms * 1e3:.3f} us", flush=True)
+        out[f"G1 {shape}"] = dict(
+            ms=ms, cold_ms=cold_ms, floor_ms=floor_ms, plain_ms=plain_ms,
+            chain_ms=chain_ms, library_ms=library_ms, bound_ms=bound_ms,
+            bound_by=by)
+        del xs, w, b
+    for ks in ((1024,), (1024, 504)):
+        gen = torch.Generator("cuda").manual_seed(len(ks))
+        xs = [torch.randn(G1_HOST_ROWS, k, generator=gen, device="cuda").to(
+            torch.bfloat16) for k in ks]
+        w = (torch.randn(sum(ks), 1024, generator=gen, device="cuda")
+             * sum(ks) ** -0.5).to(torch.bfloat16)
+        b = torch.randn(1024, generator=gen, device="cuda") * 0.1
+        if not mlp_gemm.takes(xs, w):
+            _fail(f"G1 does not take the host-time layer K={ks}")
+        routed_us = _host_us(lambda: tmlp._relu_layer(xs, w, b),
+                             G1_HOST_CALLS)
+        chain_us = _host_us(lambda: chain(xs, w, b), G1_HOST_CALLS)
+        device_ms = _device_ms(lambda: mlp_gemm.bias_relu(xs[0], w, b,
+                                                          *xs[1:]),
+                               G1_CALLS, G1_REPS)
+        shape = f"M={G1_HOST_ROWS} K={'+'.join(map(str, ks))} N=1024"
+        print(f"G1 host time {shape}: {routed_us:.1f} us a layer routed "
+              f"through G1 (models/mlp.py::_relu_layer), {chain_us:.1f} us "
+              f"through the chain (cuBLAS f32 GEMM + E1), over "
+              f"{G1_HOST_CALLS} calls; G1's device time "
+              f"{device_ms * 1e3:.1f} us", flush=True)
+        out[f"G1 host {shape}"] = dict(routed_us=routed_us, chain_us=chain_us,
+                                       device_ms=device_ms)
+    return out
+
+
 def _zero_counts(composite) -> None:
-    """Sets the launch counts of K1, K2, E1-E3, ENC and VIEW to 0."""
-    from mipnerf360_torch.ops import encode, mlp_epilogue
+    """Sets the launch counts of K1, K2, G1, E1-E3, ENC and VIEW to 0."""
+    from mipnerf360_torch.ops import encode, mlp_epilogue, mlp_gemm
 
     composite.launches = composite.bwd_launches = 0
-    for counts in (mlp_epilogue.launches, encode.launches):
+    for counts in (mlp_gemm.launches, mlp_epilogue.launches, encode.launches):
         for k in counts:
             counts[k] = 0
 
 
 def _read_counts(composite) -> tuple:
-    """(K1, K2, {E1, E2, E3, ENC, VIEW}) launches since
+    """(K1, K2, {G1, E1, E2, E3, ENC, VIEW}) launches since
     :func:`_zero_counts`."""
-    from mipnerf360_torch.ops import encode, mlp_epilogue
+    from mipnerf360_torch.ops import encode, mlp_epilogue, mlp_gemm
 
     return (composite.launches, composite.bwd_launches,
-            {**mlp_epilogue.launches, **encode.launches})
+            {**mlp_gemm.launches, **mlp_epilogue.launches,
+             **encode.launches})
 
 
 def _levels(mcfg) -> int:
@@ -891,35 +1038,58 @@ def _levels(mcfg) -> int:
 
 
 def _fused_stacks(mcfg) -> list:
-    """The hidden depth of each MLP stack that a forward of ``mcfg`` runs
-    through E1-E3 on the card (``models/mlp.py::fused_relu_stack``): a bf16
-    model without ``trunk_final_sigmoid`` (which ends the proposal's hidden
-    layers on a sigmoid too), at hidden widths the kernels take; the
-    proposal MLP once a round, the trunk, and the view branch's one layer
-    where the model has it."""
+    """The MLP stacks that a forward of ``mcfg`` runs fused on the card
+    (``models/mlp.py::fused_relu_stack``): a bf16 model without
+    ``trunk_final_sigmoid`` (which ends the proposal's hidden layers on a
+    sigmoid too), at hidden widths the epilogue kernels take; the proposal
+    MLP once a round, the trunk, and the view branch's one layer where the
+    model has it. Each stack is its hidden layers' (input widths, width):
+    the encode's features into each stack's first layer and into the
+    trunk's skip layers, the bottleneck and the direction features into the
+    view layer."""
     from mipnerf360_torch.ops.mlp_epilogue import takes_width
 
     if mcfg.compute_dtype != "bfloat16" or mcfg.trunk_final_sigmoid:
         return []
-    return [depth for depth, width, times in (
-        (mcfg.proposal_depth, mcfg.hidden_proposal, mcfg.proposal_rounds),
-        (mcfg.nerf_depth, mcfg.hidden_nerf, 1),
-        (1, mcfg.viewdir_width, int(mcfg.bottleneck_width > 0)))
-        if takes_width(width) for _ in range(times)]
+    d = mcfg.padded_input_dim
+
+    def stack(depth, width, skips=()):
+        return [((d if i == 0 else width,) + ((d,) if i in skips else ()),
+                 width) for i in range(depth)]
+
+    stacks = ([stack(mcfg.proposal_depth, mcfg.hidden_proposal)]
+              * mcfg.proposal_rounds
+              + [stack(mcfg.nerf_depth, mcfg.hidden_nerf, mcfg.skip_layers)])
+    if mcfg.bottleneck_width:
+        stacks.append([((mcfg.bottleneck_width, mcfg.viewdir_dim),
+                        mcfg.viewdir_width)])
+    return [s for s in stacks if takes_width(s[0][1])]
+
+
+def _g1_layer(inputs, width) -> bool:
+    """Whether G1 runs a fused hidden layer of these input widths: each
+    input's rows 16 bytes apart (a multiple of 8 bf16 features; the
+    encode's rows are contiguous) and a width that is a multiple of 64
+    (``ops/mlp_gemm.py``); the other layers run cuBLAS and E1."""
+    return width % 64 == 0 and all(k % 8 == 0 for k in inputs)
 
 
 def _epilogue_want(mcfg, k1: int, k2: int) -> dict:
-    """E1-E3, ENC and VIEW launches of a path that launches K1 ``k1`` and K2
-    ``k2`` times on a model ``mcfg``. A forward of every level (of a train
-    step, an eval batch or a render chunk) launches K1 and ENC (the factored
-    encode) once a level (:func:`_levels`), VIEW once where the model has
-    the view branch, and E1 once per hidden layer of each fused stack; a
-    train step's backward K2 once a level, E2 once per hidden layer of each
-    fused stack but its last, and E3 once per fused stack."""
+    """G1, E1-E3, ENC and VIEW launches of a path that launches K1 ``k1``
+    and K2 ``k2`` times on a model ``mcfg``. A forward of every level (of a
+    train step, an eval batch or a render chunk) launches K1 and ENC (the
+    factored encode) once a level (:func:`_levels`), VIEW once where the
+    model has the view branch, and G1 or E1 (:func:`_g1_layer`) once per
+    hidden layer of each fused stack; a train step's backward K2 once a
+    level, E2 once per hidden layer of each fused stack but its last, and
+    E3 once per fused stack."""
     stacks = _fused_stacks(mcfg)
+    layers = [layer for s in stacks for layer in s]
+    g1 = sum(_g1_layer(*layer) for layer in layers)
     forwards, steps = k1 // _levels(mcfg), k2 // _levels(mcfg)
-    return {"E1": forwards * sum(stacks),
-            "E2": steps * sum(d - 1 for d in stacks),
+    return {"G1": forwards * g1,
+            "E1": forwards * (len(layers) - g1),
+            "E2": steps * sum(len(s) - 1 for s in stacks),
             "E3": steps * len(stacks),
             "ENC": forwards * _levels(mcfg) * int(mcfg.factored_encode),
             "VIEW": forwards * int(mcfg.bottleneck_width > 0)}
@@ -1756,7 +1926,8 @@ def drive_garden_paper(composite, card: str, work: Path):
           f"layer(s) {mcfg.skip_layers}, bottleneck {mcfg.bottleneck_width}, "
           f"view layer {mcfg.viewdir_width}, {mcfg.ray_shape} rays, "
           f"{mcfg.compute_dtype} matmuls, {batch} rays/step; fused stacks "
-          f"of hidden depth {_fused_stacks(mcfg)}", flush=True)
+          f"of hidden depth {[len(s) for s in _fused_stacks(mcfg)]}",
+          flush=True)
     test = get_dataset(cfg.data, "test", white_bkgd=mcfg.white_bkgd)
     hw = test.h * test.w
     chunks_per_view = -(-hw // cfg.train.eval_image_chunk)
@@ -3059,6 +3230,7 @@ def main() -> int:
     k2 = check_k2(composite, floor_ms, scratch.zero_)
     epilogue = check_mlp_epilogue(floor_ms, scratch.zero_)
     epilogue.update(check_encode(floor_ms, scratch.zero_))
+    epilogue.update(check_g1(floor_ms, scratch.zero_))
     del scratch
 
     # Phase 4: full-width render of the held-out views.
@@ -3216,6 +3388,7 @@ def main() -> int:
                           if shape.startswith(key)}}
 
     record["kernels"] += [
+        epilogue_entry("G1_mlp_gemm_bias_relu", "G1", "mlp_gemm.cu"),
         epilogue_entry("E1_mlp_bias_relu", "E1"),
         epilogue_entry("E2_mlp_relu_bwd", "E2"),
         epilogue_entry("E3_mlp_heads_relu_bwd", "E3"),

@@ -26,9 +26,12 @@ rounding, so the shards compute the one-rank stack up to summation order.
 On the card in bf16 without a tensor-parallel group, a stack of ReLU layers
 under thin heads (:func:`relu_stack_heads`: the proposal MLP, and the NeRF
 trunk with its density and rgb heads) runs as one autograd Function whose
-epilogue around each cuBLAS GEMM is a hand-written kernel
-(``ops/mlp_epilogue.py``: E1 forward, E2 and E3 backward): the same
-arithmetic as the layer-by-layer chain, one pass over each activation.
+layers are hand-written kernels: each hidden layer's forward one GEMM with
+the bias, rounding and ReLU in its epilogue (``ops/mlp_gemm.py``: G1; or
+cuBLAS and E1 where G1 cannot read the input, :func:`_relu_layer`), the
+backward's epilogues around cuBLAS's GEMMs (``ops/mlp_epilogue.py``: E2 and
+E3): the arithmetic of the layer-by-layer chain, the forward's f32 sums in
+another order.
 :func:`apply_mlp` and :func:`apply_tower` (the NeRF trunk under its heads)
 alone choose between the two, by :func:`fused_relu_stack`.
 
@@ -45,7 +48,8 @@ from typing import NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
-from ..ops import mlp_epilogue
+from ..ops import mlp_epilogue, mlp_gemm
+from ..ops.mlp_gemm import mm_f32 as _mm_f32
 from ..parallel.collectives import all_reduce_, gather
 from ..utils.trace import span
 
@@ -74,21 +78,6 @@ def init_mlp(generator: torch.Generator, sizes: Sequence[int]):
     """sizes = [in, h1, ..., out]; returns {"layers": [linear, ...]} on the CPU."""
     return {"layers": [init_linear(generator, sizes[i], sizes[i + 1])
                        for i in range(len(sizes) - 1)]}
-
-
-def _mm_f32(a, b):
-    """a @ b for 2-D compute-dtype operands, accumulated and returned in f32.
-
-    On CUDA, ``torch.mm(..., out_dtype=float32)`` accumulates in f32 and
-    returns f32 without rounding to the operand dtype (a plain bf16 matmul
-    rounds before the bias add, which the JAX package does not). The CPU has
-    no such overload; there the operands, already rounded to the compute
-    dtype, are multiplied in f32: products of bf16 values are exact in f32,
-    so only the summation order differs.
-    """
-    if a.is_cuda:
-        return torch.mm(a, b, out_dtype=torch.float32)
-    return torch.mm(a.float(), b.float())
 
 
 def _split(g, dtype):
@@ -319,6 +308,20 @@ def fused_relu_stack(x, compute_dtype, tp_group, hidden, hidden_activations,
                         for e in extras))
 
 
+def _relu_layer(inputs, w, b):
+    """One hidden layer of :func:`relu_stack_heads`, relu(bf16(inputs @ w
+    + b)) in bf16 from one or two bf16 ``inputs`` (w's rows are theirs in
+    order): G1 (``ops/mlp_gemm.py``) where ``mlp_gemm.takes`` the inputs'
+    shapes and strides, else cuBLAS's f32 product of each input and E1
+    (rows TMA cannot read: the published view layer's 27 direction
+    features, the presets' 226 input features)."""
+    if mlp_gemm.takes(inputs, w):
+        return mlp_gemm.bias_relu_taken(inputs, w, b)
+    k = inputs[0].shape[-1]
+    ys = [_mm_f32(inputs[0], w[:k])] + [_mm_f32(x, w[k:]) for x in inputs[1:]]
+    return mlp_epilogue.bias_relu(ys[0], b, *ys[1:])
+
+
 def relu_stack_heads(hidden, heads, x, split: bool, rounded_head: bool = False,
                      extras: Sequence[Extra] = ()):
     """ReLU layers ``hidden`` (bf16 GEMMs, f32 bias, bf16 outputs), then each
@@ -376,12 +379,7 @@ def _relu_stack_forward(x, ex, flat, plan, keep: bool):
     bs = flat[1::2]
     h, acts = xb, []
     for i, (w, b) in enumerate(zip(ws[:n_hidden], bs[:n_hidden])):
-        if i in second:
-            k = h.shape[-1]
-            h = mlp_epilogue.bias_relu(_mm_f32(h, w[:k]), b,
-                                       _mm_f32(second[i], w[k:]))
-        else:
-            h = mlp_epilogue.bias_relu(_mm_f32(h, w), b)
+        h = _relu_layer([h] + ([second[i]] if i in second else []), w, b)
         if keep:
             acts.append(h)
     outs = []

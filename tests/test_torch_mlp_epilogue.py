@@ -26,6 +26,7 @@ from mipnerf360_torch.models import mipnerf360 as tm
 from mipnerf360_torch.models import mlp as tmlp
 from mipnerf360_torch.ops import composite
 from mipnerf360_torch.ops import mlp_epilogue as epi
+from mipnerf360_torch.ops import mlp_gemm
 from mipnerf360_torch.train import init_train_state, joint_cadence_grads
 from mipnerf360_torch.train.state import make_train_state
 
@@ -421,6 +422,11 @@ def test_kernels_refuse_what_they_cannot_take(cuda):
     assert epi.launches == before
 
 
+def _launches():
+    """G1's and E1-E3's launch counts."""
+    return {**mlp_gemm.launches, **epi.launches}
+
+
 def _garden(batch):
     cfg = get_config("garden_quality")
     return dataclasses.replace(cfg, train=dataclasses.replace(
@@ -433,11 +439,13 @@ def _step(cfg, state, rays, pixels, noise):
 
 @pytest.mark.cuda
 def test_garden_step_launches_and_matches_the_unfused_chain(cuda, monkeypatch):
-    """One garden_quality joint step of 1024 rays on the card: 12 E1, 10 E2
-    and 2 E3 (proposal: 4, 3, 1; NeRF tower: 8, 7, 1), and its gradients
-    against the same step through the layer-by-layer chain, per leaf by
-    relative L2 at 5e-2 (ROADMAP's bf16 card rule: another summation order
-    flips bf16 roundings and ReLU masks)."""
+    """One garden_quality joint step of 1024 rays on the card: 10 G1 and 2
+    E1 forward (the preset's 226 input features keep both first layers on
+    cuBLAS + E1, ``ops/mlp_gemm.py::takes``), 10 E2 and 2 E3 (proposal: 4,
+    3, 1; NeRF tower: 8, 7, 1), and its gradients against the same step
+    through the layer-by-layer chain, per leaf by relative L2 at 5e-2
+    (ROADMAP's bf16 card rule: another summation order flips bf16 roundings
+    and ReLU masks)."""
     cfg = _garden(1024)
     cpu = init_train_state(cfg.model, cfg.train, device="cpu")
     state = make_train_state(cpu.params, device=cuda,
@@ -447,14 +455,14 @@ def test_garden_step_launches_and_matches_the_unfused_chain(cuda, monkeypatch):
     n = cfg.model.num_samples + 1
     noise = tm.RenderNoise(torch.rand(1024, n, device=cuda),
                            torch.rand(1024, n, device=cuda) / n)
-    before = dict(epi.launches)
+    before = _launches()
     fused, aux = _step(cfg, state, rays, pixels, noise)
-    assert {k: epi.launches[k] - before[k] for k in before} == {
-        "E1": 12, "E2": 10, "E3": 2}
+    assert {k: _launches()[k] - before[k] for k in before} == {
+        "G1": 10, "E1": 2, "E2": 10, "E3": 2}
     monkeypatch.setattr(tmlp, "fused_relu_stack", lambda *a: False)
-    before = dict(epi.launches)
+    before = _launches()
     chain, aux_chain = _step(cfg, state, rays, pixels, noise)
-    assert epi.launches == before
+    assert _launches() == before
     torch.testing.assert_close(aux["loss"], aux_chain["loss"], rtol=1e-2,
                                atol=0)
     for k in ("prop", "nerf"):
@@ -464,12 +472,15 @@ def test_garden_step_launches_and_matches_the_unfused_chain(cuda, monkeypatch):
 
 @pytest.mark.cuda
 def test_render_launches_twelve_e1_per_chunk(cuda):
-    cfg = get_config("garden_quality").model
+    """Twelve forward layers a render chunk: at the cells' 12 IPE scales
+    (520 input features) all through G1."""
+    cfg = dataclasses.replace(get_config("garden_quality").model,
+                              ipe_max_deg=12)
     params = tm.init_model(cfg, torch.Generator().manual_seed(1))
-    before = dict(epi.launches), composite.launches
+    before = _launches(), composite.launches
     tm.render_image(params, cfg, dummy_rays(3 * 512, seed=2), chunk=512)
-    assert {k: epi.launches[k] - before[0][k] for k in before[0]} == {
-        "E1": 36, "E2": 0, "E3": 0}
+    assert {k: _launches()[k] - before[0][k] for k in before[0]} == {
+        "G1": 36, "E1": 0, "E2": 0, "E3": 0}
     assert composite.launches - before[1] == 6
 
 
@@ -502,7 +513,7 @@ def test_fused_path_conditions_on_card(cuda):
     cfg = dataclasses.replace(get_config("garden_quality").model,
                               trunk_final_sigmoid=True)
     params = tm.init_model(cfg, torch.Generator().manual_seed(1))
-    before = dict(epi.launches)
+    before = _launches()
     tm.render_image(params, cfg, dummy_rays(256, seed=2), chunk=256)
     # the proposal's hidden layers end on sigmoid too: neither stack fuses
-    assert epi.launches == before
+    assert _launches() == before
