@@ -5,7 +5,8 @@
 Builds every CUDA kernel of ``mipnerf360_torch`` from ``mipnerf360_torch/csrc``
 with ``nvcc``, holds each kernel (K1, the composite forward, and K2, its
 backward; G1, the MLP forward's GEMM; E1-E3, the MLP epilogue; ENC and
-VIEW, the encode) against its plain PyTorch version on the card, then
+VIEW, the encode; H1 and H2, the hash-grid encode and its backward) against
+its plain PyTorch version on the card, then
 drives the
 port's two paths at the full width of the ``synthetic_quality`` preset:
 
@@ -31,6 +32,8 @@ port's two paths at the full width of the ``synthetic_quality`` preset:
 - ``garden_paper`` (the published network) on that capture: a held-out
   view at random init, card against CPU on its rays, joint train steps of
   16,384 rays, ``apps.train``, ``apps.eval`` and ``apps.video``;
+- ``garden_zip`` (Zip-NeRF's hash-grid network) on that capture, as
+  ``garden_paper``, at 65,536 rays a step;
 - ``blender_lego_quality`` on an 800x800 RGBA Blender-layout capture:
   ``apps.train`` and ``apps.video`` on the synthesized render path;
 - ``apps.video`` on the synthetic scene's render split, the port's PNG
@@ -72,13 +75,14 @@ port's two paths at the full width of the ``synthetic_quality`` preset:
   CPU.
 
 Each path runs with the kernels' launch counts set to 0 just before it and
-read just after: K1, K2 and E = {G1, E1, E2, E3, ENC, VIEW}, the MLP
-forward GEMM, the MLP epilogue kernels and the encode kernels (phase 3c's,
-3d's and 3e's own calls count on no path). Where a path's K1 and K2 count its
+read just after: K1, K2 and E = {G1, E1, E2, E3, ENC, VIEW, H1, H2}, the
+MLP forward GEMM, the MLP epilogue kernels and the encode kernels (phase
+3c's, 3d's, 3e's and 3f's own calls count on no path). Where a path's K1 and K2 count its
 forwards of every level (one K1 a proposal round and one on the NeRF
 level) and its train steps (one K2 a level), E
-must follow from them and the path's model (``_epilogue_want``: ENC once a
-level of every forward, VIEW once a forward of the view branch, G1 on
+must follow from them and the path's model (``_epilogue_want``: ENC, or H1
+on the grid layout, once a level of every forward, H2 once a level of every
+train step of the grid layout, VIEW once a forward of the view branch, G1 on
 each fused hidden layer whose inputs TMA reads, E1 on the rest): the train
 step, the renders, the trainers, evals and videos, 12a and the demo; the
 rest report E unchecked, and ``tools.scaling``'s rows carry no E. The card is checked against the CPU on the render (the
@@ -177,6 +181,17 @@ GARDEN_SETS = ["train.log_every=20", "train.eval_every=60",
 PAPER_TRAIN_STEPS, PAPER_STEPS = 3, 40
 PAPER_SETS = ["train.log_every=20", "train.eval_every=40",
               "train.eval_image_every=40", "train.lr_max_steps=10000"]
+# Phase 9c: garden_zip (Zip-NeRF: each of two proposal rounds of 64 samples
+# and the 32 NeRF samples encoded by its own hash grid, 65,536 rays a step)
+# on phase 9's capture, as phase 9b runs garden_paper: a held-out view at
+# random init (card against CPU on PARITY_RAYS of its rays),
+# ZIP_TRAIN_STEPS joint steps, ``apps.train`` for ZIP_STEPS steps with host
+# staging and an image eval at its last step, ``apps.eval`` on every
+# held-out view and ``apps.video`` on GARDEN_VIDEO_POSES poses; H1 is
+# counted three times a forward, H2 three times a step, and ENC never.
+ZIP_TRAIN_STEPS, ZIP_STEPS = 3, 20
+ZIP_SETS = ["train.log_every=10", "train.eval_every=20",
+            "train.eval_image_every=20", "train.lr_max_steps=25000"]
 # Phase 10: blender_lego_quality at full width on a Blender-layout capture
 # of 800x800 RGBA views (loaded at factor 2, 400x400): lego's 100 train
 # views, its 200 test views cut to 8, LEGO_STEPS steps, and LEGO_VIDEO_POSES
@@ -1011,24 +1026,128 @@ def check_g1(floor_ms, flush) -> dict:
     return out
 
 
+# Phase 3f: the hash-grid kernels H1 and H2 at the garden_zip cell's shapes:
+# each sampling level of a step of 65,536 rays (two proposal rounds of 64
+# samples on grids of 1 feature a level to resolution 512 and 2,048, the
+# NeRF level's 32 samples on 4 features to 8,192; 6 points a sample, 10
+# levels), on tables drawn U(-2, 2) and rays of a capture's kind. H1 (bf16
+# out) is held to the plain version on the card (the float32 features'
+# relative L2 gap under HASHGRID_REL, which bf16 rounding alone stays
+# under), H2 to the plain version's ``index_add_`` on the same bf16
+# cotangent (each grid level's relative L2 gap under HASHGRID_GRAD_REL: the
+# kernels' points differ from the plain version's by float32 round-off and
+# the atomics sum in another order, 1e-6 to 4.2e-4, the finest levels
+# widest; the plain version with omega = 1 reads 3.1e-3, 5.7e-2 and 0.43 at
+# the finest level of each sampling level, and a wrong corner weight far
+# more), and H1 and H2 (with the zeroing of its
+# gradient, ~0.1 ms of an H2 call at the NeRF level's table) are timed as
+# phase 3c times E1-E3, in graphs of HASHGRID_CALLS calls, beside the bytes
+# they cannot avoid.
+HASHGRID_RAYS, HASHGRID_REL, HASHGRID_CALLS = 65536, 4e-3, 5
+HASHGRID_GRAD_REL = 1e-3
+
+
+def check_hashgrid(floor_ms, flush) -> dict:
+    """Phase 3f: H1 and H2 against their plain versions at the cell's
+    shapes, then timed hot and cold beside their byte bounds."""
+    from mipnerf360_torch.config import get_config
+    from mipnerf360_torch.core import hashgrid as hg
+    from mipnerf360_torch.core.gaussians import MULTISAMPLES
+    from mipnerf360_torch.ops import hashgrid
+
+    mcfg = get_config("garden_zip").model
+    out = {}
+    for level in range(_levels(mcfg)):
+        spec = hg.model_grid_spec(mcfg, level)
+        samples = (mcfg.nerf_sample_count if level == mcfg.proposal_rounds
+                   else mcfg.num_samples)
+        n = HASHGRID_RAYS
+        rays, t = _encode_inputs(n, samples, 30 + level)
+        g = torch.Generator("cuda").manual_seed(level)
+        table = torch.rand((spec.entries, spec.features), generator=g,
+                           device="cuda") * 4 - 2
+        turn, mirror = (torch.rand((n, samples), generator=g, device="cuda")
+                        for _ in range(2))
+        ins = (t, rays.origins, rays.directions, rays.radii, turn, mirror)
+        got = hashgrid.grid_forward(table, *ins, spec, torch.bfloat16)
+        want = torch.cat([hg.plain_features(table, *hashgrid.plain_points(
+            *(x[lo:lo + 4096] for x in ins)), spec, MULTISAMPLES)
+            for lo in range(0, n, 4096)]).view(got.shape)
+        rel = (torch.linalg.norm(got.float() - want)
+               / torch.linalg.norm(want)).item()
+        tag = f"H1 level {level}"
+        print(f"{tag} vs plain: {n} rays x {samples} samples x "
+              f"{MULTISAMPLES} points, {spec.width} features: bf16 output's "
+              f"relative L2 gap to the plain float32 {rel:.2e}", flush=True)
+        if not rel < HASHGRID_REL:
+            _fail(f"{tag} disagrees with its plain version")
+        del want
+        cot = torch.randn(got.shape, generator=g, device="cuda").to(
+            torch.bfloat16)
+        grad = hashgrid.grid_backward(cot, *ins, spec)
+        want = torch.zeros_like(grad)
+        for lo in range(0, n, 4096):
+            part = [x[lo:lo + 4096] for x in ins]
+            want += hg.plain_table_grad(
+                cot[lo:lo + 4096].reshape(-1, spec.width),
+                *hashgrid.plain_points(*part), spec, MULTISAMPLES)
+        whole = (torch.linalg.norm(grad - want)
+                 / torch.linalg.norm(want)).item()
+        gaps = [(torch.linalg.norm(grad[a:a + size] - want[a:a + size])
+                 / torch.linalg.norm(want[a:a + size])).item()
+                for a, size in zip(spec.offsets, spec.sizes)]
+        print(f"H2 level {level} vs plain (index_add_): the table gradient's "
+              f"relative L2 gap to the plain float32 {whole:.2e}, by grid "
+              f"level {', '.join(f'{x:.1e}' for x in gaps)}", flush=True)
+        if not max(gaps) < HASHGRID_GRAD_REL:
+            _fail(f"H2 level {level} disagrees with its plain version")
+        out[f"H2 level {level} vs plain"] = dict(rel=whole,
+                                                 rel_by_grid_level=gaps)
+        del grad, want
+        calls = [("H1", lambda: hashgrid.grid_forward(
+                     table, *ins, spec, torch.bfloat16)),
+                 ("H2", lambda: hashgrid.grid_backward(cot, *ins, spec))]
+        rows = n * samples
+        feats = 2 * rows * spec.width
+        nbytes = {"H1": 4 * n * (samples + 1 + 7 + 2 * samples) + feats,
+                  "H2": 4 * n * (samples + 1 + 7 + 2 * samples) + feats
+                  + 4 * spec.entries * spec.features}
+        for key, fn in calls:
+            ms = _device_ms(fn, HASHGRID_CALLS, 7)
+            cold_ms, (q1, q3), _ = _cold_ms(fn, flush, HASHGRID_CALLS, 7)
+            bound_ms = nbytes[key] / HBM_BYTES_PER_S * 1e3
+            print(f"{key} level {level} time ({rows} rows): hot {ms:.3f} ms, "
+                  f"cold {cold_ms:.3f} ms (quartiles {q1:.3f}-{q3:.3f}), "
+                  f"harness floor {floor_ms * 1e3:.3f} us; bytes bound "
+                  f"{bound_ms:.3f} ms ({100 * bound_ms / ms:.1f}% of the hot)",
+                  flush=True)
+            out[f"{key} level {level} {rows}x{spec.width}"] = dict(
+                ms=ms, cold_ms=cold_ms, cold_quartiles_ms=[q1, q3],
+                floor_ms=floor_ms, bytes_ms=bound_ms)
+        del table, cot, got
+    return out
+
+
 def _zero_counts(composite) -> None:
-    """Sets the launch counts of K1, K2, G1, E1-E3, ENC and VIEW to 0."""
-    from mipnerf360_torch.ops import encode, mlp_epilogue, mlp_gemm
+    """Sets the launch counts of K1, K2, G1, E1-E3, ENC, VIEW, H1 and H2 to
+    0."""
+    from mipnerf360_torch.ops import encode, hashgrid, mlp_epilogue, mlp_gemm
 
     composite.launches = composite.bwd_launches = 0
-    for counts in (mlp_gemm.launches, mlp_epilogue.launches, encode.launches):
+    for counts in (mlp_gemm.launches, mlp_epilogue.launches, encode.launches,
+                   hashgrid.launches):
         for k in counts:
             counts[k] = 0
 
 
 def _read_counts(composite) -> tuple:
-    """(K1, K2, {G1, E1, E2, E3, ENC, VIEW}) launches since
+    """(K1, K2, {G1, E1, E2, E3, ENC, VIEW, H1, H2}) launches since
     :func:`_zero_counts`."""
-    from mipnerf360_torch.ops import encode, mlp_epilogue, mlp_gemm
+    from mipnerf360_torch.ops import encode, hashgrid, mlp_epilogue, mlp_gemm
 
     return (composite.launches, composite.bwd_launches,
             {**mlp_gemm.launches, **mlp_epilogue.launches,
-             **encode.launches})
+             **encode.launches, **hashgrid.launches})
 
 
 def _levels(mcfg) -> int:
@@ -1042,10 +1161,12 @@ def _fused_stacks(mcfg) -> list:
     (``models/mlp.py::fused_relu_stack``): a bf16 model without
     ``trunk_final_sigmoid`` (which ends the proposal's hidden layers on a
     sigmoid too), at hidden widths the epilogue kernels take; the proposal
-    MLP once a round, the trunk, and the view branch's one layer where the
-    model has it. Each stack is its hidden layers' (input widths, width):
-    the encode's features into each stack's first layer and into the
-    trunk's skip layers, the bottleneck and the direction features into the
+    MLP once a round, the trunk (not under the grid layout's lone
+    bottleneck head, wider than the epilogue's heads), and the view
+    branch's layers where the model has it. Each stack is its hidden
+    layers' (input widths, width): the encode's features (each round's own
+    on the grid layout) into each stack's first layer and into the trunk's
+    skip layers, the bottleneck and the direction features into the first
     view layer."""
     from mipnerf360_torch.ops.mlp_epilogue import takes_width
 
@@ -1053,16 +1174,22 @@ def _fused_stacks(mcfg) -> list:
         return []
     d = mcfg.padded_input_dim
 
-    def stack(depth, width, skips=()):
-        return [((d if i == 0 else width,) + ((d,) if i in skips else ()),
+    def stack(depth, width, skips=(), first=d):
+        return [((first if i == 0 else width,) + ((d,) if i in skips else ()),
                  width) for i in range(depth)]
 
-    stacks = ([stack(mcfg.proposal_depth, mcfg.hidden_proposal)]
-              * mcfg.proposal_rounds
-              + [stack(mcfg.nerf_depth, mcfg.hidden_nerf, mcfg.skip_layers)])
+    grid = mcfg.encoding == "hashgrid"
+    stacks = [stack(mcfg.proposal_depth, mcfg.hidden_proposal,
+                    first=mcfg.grid_dim(r) if grid else d)
+              for r in range(mcfg.proposal_rounds)]
+    if not mcfg.bottleneck_density:
+        stacks.append(stack(mcfg.nerf_depth, mcfg.hidden_nerf,
+                            mcfg.skip_layers))
     if mcfg.bottleneck_width:
         stacks.append([((mcfg.bottleneck_width, mcfg.viewdir_dim),
-                        mcfg.viewdir_width)])
+                        mcfg.viewdir_width)] + [
+            ((mcfg.viewdir_width,), mcfg.viewdir_width)] * (
+                mcfg.viewdir_depth - 1))
     return [s for s in stacks if takes_width(s[0][1])]
 
 
@@ -1075,24 +1202,29 @@ def _g1_layer(inputs, width) -> bool:
 
 
 def _epilogue_want(mcfg, k1: int, k2: int) -> dict:
-    """G1, E1-E3, ENC and VIEW launches of a path that launches K1 ``k1``
-    and K2 ``k2`` times on a model ``mcfg``. A forward of every level (of a
-    train step, an eval batch or a render chunk) launches K1 and ENC (the
-    factored encode) once a level (:func:`_levels`), VIEW once where the
-    model has the view branch, and G1 or E1 (:func:`_g1_layer`) once per
-    hidden layer of each fused stack; a train step's backward K2 once a
-    level, E2 once per hidden layer of each fused stack but its last, and
-    E3 once per fused stack."""
+    """G1, E1-E3, ENC, VIEW, H1 and H2 launches of a path that launches K1
+    ``k1`` and K2 ``k2`` times on a model ``mcfg``. A forward of every level
+    (of a train step, an eval batch or a render chunk) launches K1 and ENC
+    (the factored encode) or H1 (the grid layout's) once a level
+    (:func:`_levels`), VIEW once where the model has the view branch, and
+    G1 or E1 (:func:`_g1_layer`) once per hidden layer of each fused stack;
+    a train step's backward K2 and, on the grid layout, H2 once a level, E2
+    once per hidden layer of each fused stack but its last, and E3 once per
+    fused stack."""
     stacks = _fused_stacks(mcfg)
     layers = [layer for s in stacks for layer in s]
     g1 = sum(_g1_layer(*layer) for layer in layers)
     forwards, steps = k1 // _levels(mcfg), k2 // _levels(mcfg)
+    grid = mcfg.encoding == "hashgrid"
     return {"G1": forwards * g1,
             "E1": forwards * (len(layers) - g1),
             "E2": steps * sum(len(s) - 1 for s in stacks),
             "E3": steps * len(stacks),
-            "ENC": forwards * _levels(mcfg) * int(mcfg.factored_encode),
-            "VIEW": forwards * int(mcfg.bottleneck_width > 0)}
+            "ENC": forwards * _levels(mcfg) * int(
+                mcfg.factored_encode and not grid),
+            "VIEW": forwards * int(mcfg.bottleneck_width > 0),
+            "H1": forwards * _levels(mcfg) * int(grid),
+            "H2": steps * _levels(mcfg) * int(grid)}
 
 
 def _kernel_class(name: str) -> str:
@@ -1351,7 +1483,8 @@ def check_train_card_vs_cpu(cfg):
         for dev, state in (("cpu", cpu), ("cuda", card)):
             grads, aux = joint_cadence_grads(
                 dcfg, state, rays_to_device(rays, dev), pixels.to(dev),
-                noise=RenderNoise(*(x.to(dev) for x in noise)))
+                noise=RenderNoise(noise.sample.to(dev),
+                                  noise.resample.to(dev)))
             outs[dev] = ({k: v.cpu() for k, v in aux.items()},
                          [g.cpu() for k in ("prop", "nerf") for g in grads[k]])
         (aux_cpu, g_cpu), (aux_card, g_card) = outs["cpu"], outs["cuda"]
@@ -1895,13 +2028,18 @@ def drive_garden(composite, card: str, work: Path, step_rays_per_s: float):
     return launches, lpips_view, weights
 
 
-def drive_garden_paper(composite, card: str, work: Path):
-    """Phase 9b: ``garden_paper`` on phase 9's capture (``work``/garden): a
-    held-out view at random init (card against CPU on PARITY_RAYS of its
-    rays), PAPER_TRAIN_STEPS joint steps of the preset's batch, then
-    ``apps.train`` (host staging), ``apps.eval`` and ``apps.video``. Each
+def drive_garden_layout(composite, card: str, work: Path,
+                        preset: str = "garden_paper", tag: str = "paper",
+                        train_steps: int = PAPER_TRAIN_STEPS,
+                        trainer_steps: int = PAPER_STEPS, sets=PAPER_SETS,
+                        phase: str = "9b"):
+    """Phases 9b and 9c: ``preset`` (``garden_paper``, ``garden_zip``) on
+    phase 9's capture (``work``/garden): a held-out view at random init
+    (card against CPU on PARITY_RAYS of its rays), ``train_steps`` joint
+    steps of the preset's batch, then ``apps.train`` for ``trainer_steps``
+    with ``sets`` (host staging), ``apps.eval`` and ``apps.video``. Each
     path's launches are counted from 0 and checked (:func:`_drive`).
-    Returns {path: (K1, K2, E)}."""
+    Returns {``tag``_path: (K1, K2, E)}."""
     from mipnerf360_torch.apps import eval as eval_app
     from mipnerf360_torch.apps import train as train_app
     from mipnerf360_torch.apps import video as video_app
@@ -1916,18 +2054,22 @@ def drive_garden_paper(composite, card: str, work: Path):
 
     t_start = time.perf_counter()
     base = [f"data.base_dir={work / 'garden'}"]
-    cfg = apply_overrides(get_config("garden_paper"), base)
+    cfg = apply_overrides(get_config(preset), base)
     mcfg, batch = cfg.model, cfg.train.batch_size
     levels = _levels(mcfg)
-    print(f"model: garden_paper, {mcfg.proposal_rounds} proposal rounds of "
+    grid = (f", {mcfg.encoding} encode (grid max resolutions "
+            f"{mcfg.grid_resolutions}, features {mcfg.grid_level_features}, "
+            f"tables 2^{mcfg.grid_log2_table})"
+            if mcfg.encoding == "hashgrid" else "")
+    print(f"model: {preset}, {mcfg.proposal_rounds} proposal rounds of "
           f"{mcfg.num_samples} samples through {mcfg.hidden_proposal}x"
           f"{mcfg.proposal_depth}, {mcfg.nerf_sample_count} NeRF samples, "
           f"trunk {mcfg.hidden_nerf}x{mcfg.nerf_depth} with its input after "
           f"layer(s) {mcfg.skip_layers}, bottleneck {mcfg.bottleneck_width}, "
-          f"view layer {mcfg.viewdir_width}, {mcfg.ray_shape} rays, "
-          f"{mcfg.compute_dtype} matmuls, {batch} rays/step; fused stacks "
-          f"of hidden depth {[len(s) for s in _fused_stacks(mcfg)]}",
-          flush=True)
+          f"view layers {mcfg.viewdir_depth}x{mcfg.viewdir_width}{grid}, "
+          f"{mcfg.ray_shape} rays, {mcfg.compute_dtype} matmuls, {batch} "
+          f"rays/step; fused stacks of hidden depth "
+          f"{[len(s) for s in _fused_stacks(mcfg)]}", flush=True)
     test = get_dataset(cfg.data, "test", white_bkgd=mcfg.white_bkgd)
     hw = test.h * test.w
     chunks_per_view = -(-hw // cfg.train.eval_image_chunk)
@@ -1936,17 +2078,17 @@ def drive_garden_paper(composite, card: str, work: Path):
     params = map_params(lambda p: p.cuda(), params_cpu)
     view0 = take_rays(test.rays, np.arange(hw))
     (rgb, _, _), launches_init, dt = _drive(
-        f"garden_paper render of held-out view 0 at random init, chunk "
+        f"{preset} render of held-out view 0 at random init, chunk "
         f"{cfg.train.eval_image_chunk}", composite,
         (levels * chunks_per_view, 0),
         lambda: render_image(params, mcfg, view0,
                              chunk=cfg.train.eval_image_chunk, device="cuda"),
         mcfg)
     if not torch.isfinite(rgb).all():
-        _fail("garden_paper render at random init is not finite")
+        _fail(f"{preset} render at random init is not finite")
     idx = np.random.default_rng(10).choice(hw, PARITY_RAYS, replace=False)
     check_render_card_vs_cpu(mcfg, params_cpu, params, take_rays(view0, idx),
-                             "garden_paper")
+                             preset)
     del params, params_cpu, rgb
 
     state = init_train_state(mcfg, cfg.train,
@@ -1956,7 +2098,7 @@ def drive_garden_paper(composite, card: str, work: Path):
     bank_pixels = torch.as_tensor(test.pixels, device="cuda")
     gen = torch.Generator().manual_seed(1)
     batches = []
-    for _ in range(PAPER_TRAIN_STEPS + 1):
+    for _ in range(train_steps + 1):
         i = torch.randint(test.n_rays, (batch,), generator=gen).cuda()
         batches.append((take_rays(bank, i), bank_pixels[i]))
     step = make_train_step(cfg)
@@ -1976,70 +2118,68 @@ def drive_garden_paper(composite, card: str, work: Path):
             auxes.append(aux)
 
     _, launches_train, _ = _drive(
-        f"garden_paper {cfg.train.cadence}-cadence train steps x"
-        f"{PAPER_TRAIN_STEPS} of {batch} rays", composite,
-        (levels * PAPER_TRAIN_STEPS, levels * PAPER_TRAIN_STEPS), steps, mcfg)
+        f"{preset} {cfg.train.cadence}-cadence train steps x"
+        f"{train_steps} of {batch} rays", composite,
+        (levels * train_steps, levels * train_steps), steps, mcfg)
     peak = torch.cuda.max_memory_allocated()
     med = statistics.median(times)
-    print(f"garden_paper train step: median {med * 1e3:.2f} ms/step over "
+    print(f"{preset} train step: median {med * 1e3:.2f} ms/step over "
           f"{len(times)}, {batch / med:.0f} rays/s; peak device memory "
           f"{peak / 2**30:.2f} GiB; aux of the last step: " + ", ".join(
               f"{k}={v.item():.6g}" for k, v in auxes[-1].items())
           + f"; on {card}", flush=True)
     if not all(torch.isfinite(v).all() for aux in auxes for v in aux.values()):
-        _fail("garden_paper train step aux not finite")
+        _fail(f"{preset} train step aux not finite")
     unchanged = [i for i, (a, b) in enumerate(zip(before, leaves(state.params)))
                  if torch.equal(a, b)]
     if unchanged:
-        _fail(f"garden_paper param leaves {unchanged} did not change")
+        _fail(f"{preset} param leaves {unchanged} did not change")
     del state, bank, bank_pixels, batches, before, step
 
-    ckpt = work / "garden_paper"
-    every = _cadences(cfg, PAPER_SETS)
-    argv = ["--preset", "garden_paper", "--device", "cuda",
+    ckpt = work / preset
+    every = _cadences(cfg, sets)
+    argv = ["--preset", preset, "--device", "cuda",
             "--set", f"train.checkpoint_dir={ckpt}",
-            "--set", f"train.max_steps={PAPER_STEPS}"]
-    argv += [a for s in base + PAPER_SETS for a in ("--set", s)]
+            "--set", f"train.max_steps={trainer_steps}"]
+    argv += [a for s in base + sets for a in ("--set", s)]
     torch.cuda.reset_peak_memory_stats()
     _, launches_trainer, wall = _drive(
-        f"garden_paper apps.train (steps 0 -> {PAPER_STEPS})", composite,
-        _trainer_launches(cfg, every, test, 0, PAPER_STEPS),
+        f"{preset} apps.train (steps 0 -> {trainer_steps})", composite,
+        _trainer_launches(cfg, every, test, 0, trainer_steps),
         lambda: train_app.main(argv), mcfg)
     recs = _metric_records(ckpt)
     loss = {r["step"]: r["train/loss"] for r in recs if "train/loss" in r}
     staging = [r for r in recs if "data/device_bank" in r][0]
-    print(f"garden_paper trainer: staging "
+    print(f"{preset} trainer: staging "
           f"{'device bank' if staging['data/device_bank'] else 'host'}; "
           f"train/loss by step {loss}; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
           f"{wall:.1f} s", flush=True)
     if not loss or not all(np.isfinite(v) for v in loss.values()):
-        _fail("garden_paper trainer losses are not finite")
+        _fail(f"{preset} trainer losses are not finite")
     summary, launches_eval, wall = _drive(
-        f"garden_paper apps.eval on all {test.n_images} held-out views",
+        f"{preset} apps.eval on all {test.n_images} held-out views",
         composite, (levels * test.n_images * chunks_per_view, 0),
         lambda: eval_app.main(["--ckpt", str(ckpt), "--device", "cuda"]),
         mcfg)
-    print(f"garden_paper eval (step {summary['step']}): mean PSNR "
+    print(f"{preset} eval (step {summary['step']}): mean PSNR "
           f"{summary['mean_psnr']:.3f} dB over {summary['n_views']} views, "
           f"{test.n_rays / wall:.0f} rays/s over the whole app", flush=True)
     if (summary["n_views"] != test.n_images
             or not np.isfinite(summary["mean_psnr"])):
-        _fail("the garden_paper eval did not render every view")
+        _fail(f"the {preset} eval did not render every view")
     video, launches_video, _ = _drive(
-        f"garden_paper apps.video, {GARDEN_VIDEO_POSES} poses", composite,
+        f"{preset} apps.video, {GARDEN_VIDEO_POSES} poses", composite,
         (levels * GARDEN_VIDEO_POSES * chunks_per_view, 0),
         lambda: video_app.main([
             "--ckpt", str(ckpt), "--device", "cuda",
             "--set", f"data.n_render_poses={GARDEN_VIDEO_POSES}"]), mcfg)
-    _check_video(video, GARDEN_VIDEO_POSES, (test.h, test.w), "garden_paper",
-                 card)
-    print(f"garden_paper: phase 9b took {time.perf_counter() - t_start:.1f} s",
-          flush=True)
-    return {"paper_init_render": launches_init,
-            "paper_train": launches_train,
-            "paper_trainer": launches_trainer, "paper_eval": launches_eval,
-            "paper_video": launches_video}
+    _check_video(video, GARDEN_VIDEO_POSES, (test.h, test.w), preset, card)
+    print(f"{preset}: phase {phase} took "
+          f"{time.perf_counter() - t_start:.1f} s", flush=True)
+    return {f"{tag}_init_render": launches_init, f"{tag}_train": launches_train,
+            f"{tag}_trainer": launches_trainer, f"{tag}_eval": launches_eval,
+            f"{tag}_video": launches_video}
 
 
 def _check_video(video: dict, n_frames: int, hw, tag: str, card: str):
@@ -3231,6 +3371,7 @@ def main() -> int:
     epilogue = check_mlp_epilogue(floor_ms, scratch.zero_)
     epilogue.update(check_encode(floor_ms, scratch.zero_))
     epilogue.update(check_g1(floor_ms, scratch.zero_))
+    epilogue.update(check_hashgrid(floor_ms, scratch.zero_))
     del scratch
 
     # Phase 4: full-width render of the held-out views.
@@ -3331,7 +3472,11 @@ def main() -> int:
         paths, lpips_view, weights = drive_garden(composite, card, work,
                                                   step_rays_per_s)
         # Phase 9b: garden_paper, the published network, on that capture.
-        paths.update(drive_garden_paper(composite, card, work))
+        paths.update(drive_garden_layout(composite, card, work))
+        # Phase 9c: garden_zip, Zip-NeRF's hash-grid network, on it too.
+        paths.update(drive_garden_layout(
+            composite, card, work, "garden_zip", "zip", ZIP_TRAIN_STEPS,
+            ZIP_STEPS, ZIP_SETS, "9c"))
         # Phase 10: blender_lego_quality on a Blender-layout capture.
         paths.update(drive_lego(composite, card, work))
         # Phase 11: the synthetic video, LPIPS and checkify_fn on the card.
@@ -3393,7 +3538,9 @@ def main() -> int:
         epilogue_entry("E2_mlp_relu_bwd", "E2"),
         epilogue_entry("E3_mlp_heads_relu_bwd", "E3"),
         epilogue_entry("ENC_encode_points", "ENC", "encode.cu"),
-        epilogue_entry("VIEW_encode_viewdirs", "VIEW", "encode.cu")]
+        epilogue_entry("VIEW_encode_viewdirs", "VIEW", "encode.cu"),
+        epilogue_entry("H1_hashgrid_fwd", "H1", "hashgrid.cu"),
+        epilogue_entry("H2_hashgrid_bwd", "H2", "hashgrid.cu")]
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

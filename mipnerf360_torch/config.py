@@ -106,6 +106,28 @@ class ModelConfig:
     # one ReLU layer of ``viewdir_width`` and the rgb head.
     bottleneck_width: int = 0
     viewdir_width: int = 0
+    # ReLU layers of ``viewdir_width`` in the view branch (Zip-NeRF: 2).
+    viewdir_depth: int = 1
+    # Zip-NeRF (Barron et al. 2023; the ``garden_zip`` preset). Defaults
+    # keep every other layout. "ipe" encodes the samples by the integrated
+    # positional encoding; "hashgrid" by ``core.gaussians.MULTISAMPLES``
+    # points a sample, contracted with their isotropic scales, looked up in a
+    # multiresolution hash grid of ``grid_levels`` levels (resolutions
+    # ``grid_min_res`` to the level's max, geometric; tables of
+    # 2^``grid_log2_table`` entries, dense where the level fits), each
+    # point's features downweighted by its scale and averaged over the
+    # points. ``grid_max_res`` and ``grid_features``: comma-separated, one
+    # entry a sampling level (each proposal round's, then the NeRF
+    # level's). On the grid layout each proposal round has its own grid and
+    # MLP (``distinct_proposals``) and the NeRF level's density is channel 0
+    # of the bottleneck, with no density head (``bottleneck_density``), so
+    # it needs the view branch.
+    encoding: str = "ipe"
+    grid_levels: int = 10
+    grid_min_res: int = 16
+    grid_max_res: str = ""
+    grid_features: str = ""
+    grid_log2_table: int = 21
 
     def __post_init__(self):
         if (self.viewdir_width > 0) != (self.bottleneck_width > 0):
@@ -122,12 +144,63 @@ class ModelConfig:
                 f"trunk_skip={self.trunk_skip} at nerf_depth="
                 f"{self.nerf_depth} would concatenate the input after the last "
                 "trunk layer, into the heads")
+        if self.viewdir_depth < 1:
+            raise ValueError("viewdir_depth >= 1")
+        if self.encoding not in ("ipe", "hashgrid"):
+            raise ValueError(f"unknown encoding {self.encoding!r}")
+        if self.encoding == "hashgrid":
+            levels = self.proposal_rounds + 1
+            if (len(self.grid_resolutions) != levels
+                    or len(self.grid_level_features) != levels):
+                raise ValueError(
+                    f"grid_max_res and grid_features take {levels} entries "
+                    f"(each proposal round's, then the NeRF level's); got "
+                    f"{self.grid_max_res!r}, {self.grid_features!r}")
+            if not self.bottleneck_width or self.pad_input_lanes:
+                raise ValueError("the hash-grid layout takes the view branch "
+                                 "and no pad_input_lanes")
+            if not (1 <= self.grid_levels <= 16 and 1 <= self.grid_min_res
+                    and 1 <= self.grid_log2_table <= 30):
+                raise ValueError("the grid takes 1-16 levels, grid_min_res "
+                                 ">= 1 and tables of 2^1-2^30 entries")
+
+    @property
+    def distinct_proposals(self) -> bool:
+        """Each proposal round has its own parameters (``params["prop"]``
+        is a list of one subtree a round): the grid layout's."""
+        return self.encoding == "hashgrid"
+
+    @property
+    def bottleneck_density(self) -> bool:
+        """The NeRF level's density is channel 0 of the bottleneck, with no
+        density head: the grid layout's."""
+        return self.encoding == "hashgrid"
+
+    @property
+    def grid_resolutions(self) -> tuple:
+        """``grid_max_res`` as ints, one a sampling level."""
+        return tuple(int(x) for x in self.grid_max_res.split(",") if x)
+
+    @property
+    def grid_level_features(self) -> tuple:
+        """``grid_features`` as ints, one a sampling level."""
+        return tuple(int(x) for x in self.grid_features.split(",") if x)
+
+    def grid_dim(self, level: int) -> int:
+        """Features of sampling level ``level``'s encode (0: the first
+        proposal round, ``proposal_rounds``: the NeRF level)."""
+        if self.encoding != "hashgrid":
+            return self.input_dim
+        return self.grid_levels * self.grid_level_features[level]
 
     @property
     def input_dim(self) -> int:
         # 21*2 IPE features per scale + 4 viewdir scales * 2 angles * 2
         # (sin,cos) without the view branch; reference hardcodes 58 at
-        # model.py:39,127 (one IPE scale).
+        # model.py:39,127 (one IPE scale). The grid layout: the NeRF
+        # level's grid features.
+        if self.encoding == "hashgrid":
+            return self.grid_levels * self.grid_level_features[-1]
         view = (0 if self.bottleneck_width
                 else 4 * (self.viewdir_max_deg - self.viewdir_min_deg))
         return 42 * (self.ipe_max_deg - self.ipe_min_deg) + view
@@ -158,9 +231,11 @@ class ModelConfig:
         return -(-d // 128) * 128 if self.pad_input_lanes else d
 
 
-# The fields of the published layout, which the JAX package does not have.
+# The fields of the published layouts, which the JAX package does not have.
 LAYOUT_FIELDS = ("proposal_rounds", "nerf_samples", "trunk_skip",
-                 "bottleneck_width", "viewdir_width")
+                 "bottleneck_width", "viewdir_width", "viewdir_depth",
+                 "encoding", "grid_levels", "grid_min_res", "grid_max_res",
+                 "grid_features", "grid_log2_table")
 
 
 @dataclass(frozen=True)
@@ -501,6 +576,32 @@ def garden_paper() -> Config:
         train=dict(batch_size=16384))
 
 
+def garden_zip() -> Config:
+    """nerf_360 garden with the Zip-NeRF network and batch (Barron et al.
+    2023; camp_zipnerf ``configs/zipnerf/360.gin``).
+
+    Two proposal rounds of 64 samples and 32 NeRF samples, each sampling
+    level with its own hash grid of 10 levels (the proposals' 1 feature a
+    level up to resolution 512 and 2,048, the NeRF's 4 up to 8,192; tables
+    of 2^21 entries) and its own MLP: 10 or 40 features -> 64 (ReLU) -> the
+    raw density (a proposal) or a 256-wide linear bottleneck whose channel
+    0 is the density (the NeRF), then the bottleneck and the 27 direction
+    features -> 256 -> 256 (ReLU) -> rgb; 2^16 rays a step, learning rate
+    1e-2 to 1e-3 over 25,000 steps with 5,000 delay steps.
+    ``garden_paper``'s sampling, losses, ``density_bias`` and paddings."""
+    cfg = garden_paper()
+    cfg = dataclasses.replace(cfg, preset="garden_zip")
+    return _replace(cfg, model=dict(
+        encoding="hashgrid", grid_levels=10, grid_min_res=16,
+        grid_max_res="512,2048,8192", grid_features="1,1,4",
+        grid_log2_table=21,
+        hidden_proposal=64, proposal_depth=1, hidden_nerf=64, nerf_depth=1,
+        trunk_skip=0, bottleneck_width=256, viewdir_width=256,
+        viewdir_depth=2),
+        train=dict(batch_size=65536, max_steps=25_000, lr_init=1e-2,
+                   lr_final=1e-3, lr_delay_steps=5000))
+
+
 def llff_fern_quality() -> Config:
     """LLFF fern, NDC-free contract() + quality model (converging preset).
 
@@ -544,6 +645,7 @@ PRESETS = {
     "garden": garden,
     "garden_quality": garden_quality,
     "garden_paper": garden_paper,
+    "garden_zip": garden_zip,
     "synthetic_quality": synthetic_quality,
     "bicycle_multihost": bicycle_multihost,
     "bicycle_multihost_quality": bicycle_multihost_quality,

@@ -3,12 +3,14 @@
 from .rays import (Rays, rays_map, rays_to_device, flatten_rays, take_rays,
                    dummy_rays, resolve_device)
 from .spacing import g, t_to_s, s_to_t
-from .contract import contract, contract_jacobian, contract_gaussian
+from .contract import (contract, contract_jacobian, contract_gaussian,
+                       contract_isotropic)
 from .gaussians import (
     conical_frustum_to_gaussian,
     cylinder_to_gaussian,
     lift_gaussian,
     cast_rays,
+    multisample_cast,
 )
 from .encoding import (integrated_pos_enc, viewdir_enc, viewdir_enc_dim,
                        unit_viewdir_enc, P_BASIS, POS_ENC_DIM)

@@ -46,3 +46,18 @@ def contract_gaussian(mean, cov):
     new_mean = contract(mean)
     new_cov = torch.einsum("...ij,...jk,...lk->...il", j, cov, j)
     return new_mean, new_cov
+
+
+def contract_isotropic(means, stds):
+    """Push isotropic Gaussians (``means`` [..., 3], ``stds`` [...]) through
+    the contraction by linearization, keeping them isotropic (Zip-NeRF): the
+    mean by :func:`contract`, the std scaled by the cube root of the
+    Jacobian's determinant at the mean, (2n - 1)^(2/3) / n^2 outside the
+    unit ball (radial eigenvalue 1/n^2, tangential (2n - 1)/n^2 twice)."""
+    n2 = torch.sum(means * means, dim=-1)
+    n = torch.sqrt(torch.clamp(n2, min=_NORM_EPS))
+    inside = n2 <= 1.0
+    scale = torch.where(inside, torch.ones_like(n), (2.0 - 1.0 / n) / n)
+    root = torch.pow(torch.clamp(2.0 * n - 1.0, min=0.0), 2.0 / 3.0) / (n * n)
+    return (scale[..., None] * means,
+            stds * torch.where(inside, torch.ones_like(n), root))

@@ -1,6 +1,10 @@
 """Conical/cylindrical frustum -> Gaussian moments, lifted to world space
-(counterpart of ``mipnerf360_tpu/core/gaussians.py``)."""
+(counterpart of ``mipnerf360_tpu/core/gaussians.py``), and Zip-NeRF's
+multisampled frustum (:func:`multisample_cast`), which the JAX package does
+not have."""
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -81,3 +85,65 @@ def cast_rays(t_vals, origins, directions, radii, ray_shape: str = "cone",
     if do_contract:
         means, covs = contract_gaussian(means, covs)
     return means, covs
+
+
+# Zip-NeRF's multisampling: each interval as this many isotropic Gaussians,
+# at these multiples of pi/3 around the ray (a hexagon that spirals along
+# the frustum).
+MULTISAMPLES = 6
+PATTERN_ANGLES = (0, 2, 4, 3, 5, 1)
+
+
+def ray_basis(directions):
+    """Two unit vectors u, v [..., 3] that make an orthonormal basis with
+    the unit direction n = d / |d| (Duff et al. 2017, branchless)."""
+    n = directions / torch.linalg.vector_norm(directions, dim=-1,
+                                              keepdim=True)
+    x, y, z = n.unbind(-1)
+    s = torch.copysign(torch.ones_like(z), z)
+    a = -1.0 / (s + z)
+    b = x * y * a
+    u = torch.stack([1.0 + s * x * x * a, s * b, -s * x], dim=-1)
+    v = torch.stack([b, s + y * y * a, -y], dim=-1)
+    return u, v
+
+
+def multisample_cast(t_vals, origins, directions, radii, turn=None,
+                     mirror=None):
+    """Zip-NeRF's cast of each interval [t0, t1] of a cone ray: means [...,
+    N, 6, 3] and stds [..., N, 6] of ``MULTISAMPLES`` isotropic Gaussians.
+
+    Point j sits at t_j, placed so that the six match the frustum's mean
+    and variance along the ray, at angle theta_j = pi/3 PATTERN_ANGLES[j]
+    around it, r t_j / sqrt(2) off the axis, with std 0.5 r t_j / sqrt(2)
+    (r = ``radii``, [..., 1]). With ``turn`` and ``mirror`` ([..., N]
+    uniforms in [0, 1)), interval i's pattern is turned by 2 pi turn[i] and
+    mirrored (theta -> 5 pi/3 - theta) where mirror[i] < 0.5 (training);
+    without them every odd interval's is turned by pi/6 and mirrored
+    (rendering)."""
+    t0, t1 = t_vals[..., :-1, None], t_vals[..., 1:, None]
+    tm, td = (t0 + t1) / 2.0, (t1 - t0) / 2.0
+    j = torch.arange(MULTISAMPLES, dtype=t_vals.dtype, device=t_vals.device)
+    spread = 3.0 / math.sqrt(7.0) * (2.0 * j / (MULTISAMPLES - 1) - 1.0)
+    root = torch.sqrt((td**2 - tm**2) ** 2 + 4.0 * tm**4)
+    t = t0 + td / (td**2 + 3.0 * tm**2) * (t1**2 + 2.0 * tm**2
+                                           + spread * root)  # [..., N, 6]
+    base = torch.tensor(PATTERN_ANGLES, dtype=t_vals.dtype,
+                        device=t_vals.device) * (math.pi / 3.0)
+    if turn is None:
+        odd = (torch.arange(t.shape[-2], device=t_vals.device) % 2 == 1)
+        theta = torch.where(odd[:, None], 5.0 * math.pi / 3.0
+                            - (base + math.pi / 6.0), base)
+        theta = theta.expand(t.shape)
+    else:
+        theta = base + 2.0 * math.pi * turn[..., None]
+        theta = torch.where(mirror[..., None] < 0.5,
+                            5.0 * math.pi / 3.0 - theta, theta)
+    u, v = ray_basis(directions)
+    off = radii[..., None, :] * t / math.sqrt(2.0)            # [..., N, 6]
+    lateral = (torch.cos(theta)[..., None] * u[..., None, None, :]
+               + torch.sin(theta)[..., None] * v[..., None, None, :])
+    means = (origins[..., None, None, :]
+             + t[..., None] * directions[..., None, None, :]
+             + off[..., None] * lateral)
+    return means, 0.5 * off

@@ -19,6 +19,13 @@ the first MLP layer's input in the compute dtype (VIEW the view branch's
 direction features), on a CPU tensor the plain float32 composition. The
 MLPs, the NeRF level's one tower with its layout as data, go through
 ``models/mlp.py``, which alone chooses the card's fused stack or the chain.
+Zip-NeRF's grid layout (``encoding="hashgrid"``, the ``garden_zip`` preset)
+gives each proposal round its own subtree, ``params["prop"][i]``, and each
+sampling level a float32 table under ``"grid"`` (``nerf.grid`` for the NeRF
+level); its encode goes through ``ops.hashgrid`` (the kernels H1 and, in the
+backward, H2 on a CUDA tensor; the plain composition on a CPU one), its
+multisample pattern turned by the forward's noise (``RenderNoise.pattern``)
+or, in ``render_image``, by a fixed rule.
 The forward functions run under autograd; only ``render_image`` runs under
 ``torch.inference_mode``.
 """
@@ -34,11 +41,12 @@ from torch.utils.checkpoint import checkpoint
 from ..config import ModelConfig
 from ..core.encoding import integrated_pos_enc
 from ..core.gaussians import cast_rays
+from ..core.hashgrid import model_grid_spec
 from ..core.rays import Rays, rays_map, rays_to_device, resolve_device
 from ..core.rendering import composite_outputs
 from ..core.sampling import _uniform, sample_along_rays, stratified_jitter
 from ..core.spacing import t_to_s
-from ..ops import encode, fused
+from ..ops import encode, fused, hashgrid
 from ..parallel.collectives import gather_cat
 from ..parallel.mesh import make_mesh, rank_device
 from ..parallel.sample_axis import make_sample_sharded_composite
@@ -56,21 +64,28 @@ class RenderNoise(NamedTuple):
     (the draws the JAX package takes from its two split keys). With more
     than one proposal round, ``resample`` holds each resampling's jitter in
     turn along its last axis: [B, N+1] for each round after the first, then
-    the NeRF level's [B, nerf_samples + 1]."""
+    the NeRF level's [B, nerf_samples + 1]. On the grid layout ``pattern``
+    [B, 2 M] in [0, 1) turns and mirrors the multisample patterns (M the
+    intervals of all sampling levels, :func:`pattern_intervals`): for each
+    level in order, its [B, N] turns, then its [B, N] mirrors; None
+    elsewhere."""
 
     sample: torch.Tensor
     resample: torch.Tensor
+    pattern: Optional[torch.Tensor] = None
 
 
 def draw_render_noise(generator: torch.Generator, batch: int,
                       num_samples: int, device, rounds: int = 1,
-                      nerf_samples: int = 0) -> RenderNoise:
+                      nerf_samples: int = 0, pattern: int = 0
+                      ) -> RenderNoise:
     """The uniforms a randomized :func:`render_rays` of ``batch`` rays draws
     from ``generator`` when it is given no noise, in the same order and bit
     for bit (``rounds`` proposal rounds, ``nerf_samples`` NeRF samples, 0:
-    ``num_samples``). A data-parallel step draws them over the global batch
-    and keeps its own rows, so that every rank takes the one-process step's
-    noise."""
+    ``num_samples``; ``pattern``: the grid layout's intervals a ray,
+    :func:`pattern_intervals`, whose turns and mirrors come last). A
+    data-parallel step draws them over the global batch and keeps its own
+    rows, so that every rank takes the one-process step's noise."""
     like = torch.empty(0, device=device)
     shape = (batch, num_samples + 1)
     sample = _uniform(shape, like, generator)
@@ -78,8 +93,29 @@ def draw_render_noise(generator: torch.Generator, batch: int,
                for _ in range(rounds - 1)]
     jitters.append(stratified_jitter(
         (batch, (nerf_samples or num_samples) + 1), like, generator))
+    turns = (_uniform((batch, 2 * pattern), like, generator) if pattern
+             else None)
     return RenderNoise(sample, torch.cat(jitters, dim=-1) if rounds > 1
-                       else jitters[0])
+                       else jitters[0], turns)
+
+
+def pattern_intervals(cfg: ModelConfig) -> int:
+    """Intervals a ray over every sampling level on the grid layout (each
+    takes a turn and a mirror uniform), else 0."""
+    if cfg.encoding != "hashgrid":
+        return 0
+    return cfg.proposal_rounds * cfg.num_samples + cfg.nerf_sample_count
+
+
+def _pattern(cfg: ModelConfig, noise: Optional[RenderNoise], level: int):
+    """(turn, mirror) [B, N] of sampling level ``level`` of ``noise``, or
+    None (the render's pattern)."""
+    if noise is None or len(noise) < 3 or noise[2] is None:
+        return None
+    n = [cfg.num_samples] * cfg.proposal_rounds + [cfg.nerf_sample_count]
+    lo = 2 * sum(n[:level])
+    p = noise[2]
+    return (p[..., lo:lo + n[level]], p[..., lo + n[level]:lo + 2 * n[level]])
 
 
 def _noise_parts(cfg: ModelConfig, noise: Optional[RenderNoise]):
@@ -88,7 +124,7 @@ def _noise_parts(cfg: ModelConfig, noise: Optional[RenderNoise]):
     if noise is None:
         return None, [None] * (cfg.proposal_rounds - 1), None
     n = cfg.num_samples + 1
-    sample, r = noise
+    sample, r = noise[0], noise[1]
     return (sample, [r[..., i * n:(i + 1) * n]
                      for i in range(cfg.proposal_rounds - 1)],
             r[..., (cfg.proposal_rounds - 1) * n:])
@@ -98,27 +134,50 @@ def _compute_dtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.compute_dtype)
 
 
+# Instant-NGP's table init: U(-GRID_INIT, GRID_INIT).
+GRID_INIT = 1e-4
+
+
+def _init_grid(generator: torch.Generator, cfg: ModelConfig, level: int):
+    spec = model_grid_spec(cfg, level)
+    u = torch.rand((spec.entries, spec.features), generator=generator,
+                   dtype=torch.float32)
+    return u * (2.0 * GRID_INIT) - GRID_INIT
+
+
 def init_model(cfg: ModelConfig, generator: Optional[torch.Generator] = None
                ) -> Params:
     """Kaiming-uniform params drawn on the CPU from ``generator`` (seed 0
     when None), with the ``pad_input_lanes`` zero rows appended after the
-    real-fan-in draw."""
+    real-fan-in draw. On the grid layout ``params["prop"]`` holds one
+    subtree a round, each with its table under ``"grid"`` drawn after its
+    MLP, and the NeRF level's table is drawn after all of its layers."""
     if generator is None:
         generator = torch.Generator().manual_seed(0)
+    grid = cfg.encoding == "hashgrid"
     d, hn = cfg.input_dim, cfg.hidden_nerf
-    prop_sizes = [d] + [cfg.hidden_proposal] * cfg.proposal_depth + [1]
+    hidden = [cfg.hidden_proposal] * cfg.proposal_depth + [1]
     trunk_in = [d] + [hn + d if i in cfg.skip_layers else hn
                       for i in range(1, cfg.nerf_depth)]
-    prop = init_mlp(generator, prop_sizes)
+    if grid:
+        prop = [dict(init_mlp(generator, [cfg.grid_dim(r)] + hidden),
+                     grid=_init_grid(generator, cfg, r))
+                for r in range(cfg.proposal_rounds)]
+    else:
+        prop = init_mlp(generator, [d] + hidden)
     nerf = {"trunk": {"layers": [init_linear(generator, fi, hn)
-                                 for fi in trunk_in]},
-            "density": init_mlp(generator, [hn, 1])}
+                                 for fi in trunk_in]}}
+    if not cfg.bottleneck_density:
+        nerf["density"] = init_mlp(generator, [hn, 1])
     if cfg.bottleneck_width:
         nerf["bottleneck"] = init_mlp(generator, [hn, cfg.bottleneck_width])
         nerf["rgb"] = init_mlp(generator, [
-            cfg.bottleneck_width + cfg.viewdir_dim, cfg.viewdir_width, 3])
+            cfg.bottleneck_width + cfg.viewdir_dim]
+            + [cfg.viewdir_width] * cfg.viewdir_depth + [3])
     else:
         nerf["rgb"] = init_mlp(generator, [hn, 3])
+    if grid:
+        nerf["grid"] = _init_grid(generator, cfg, cfg.proposal_rounds)
     params = {"prop": prop, "nerf": nerf}
     pad = cfg.padded_input_dim - d
     if pad:
@@ -153,13 +212,21 @@ def _trunk_activations(cfg: ModelConfig):
 _softplus = ACTIVATIONS["softplus"]  # jax.nn.softplus: logaddexp(x, 0)
 
 
-def _encode(cfg: ModelConfig, rays: Rays, t_vals):
+def _encode(cfg: ModelConfig, rays: Rays, t_vals, level: int = 0,
+            table=None, pattern=None):
     """Cast intervals to contracted Gaussians and build MLP input features:
+    on the grid layout, sampling level ``level``'s multisampled grid encode
+    through ``ops.hashgrid`` (H1 on the card, in the compute dtype) from
+    ``table`` with the multisample ``pattern`` (None: the render's); else
     the factored encode through ``ops.encode`` (ENC on the card, in the
     compute dtype), else the general path in float32."""
     view_degs = (None if cfg.bottleneck_width
                  else (cfg.viewdir_min_deg, cfg.viewdir_max_deg))
     with span("model.encode"):
+        if cfg.encoding == "hashgrid":
+            return hashgrid.encode_grid(table, t_vals, rays,
+                                        model_grid_spec(cfg, level), pattern,
+                                        _compute_dtype(cfg))
         if cfg.factored_encode:
             return encode.encode_points(
                 t_vals, rays, ray_shape=cfg.ray_shape,
@@ -175,18 +242,27 @@ def _encode(cfg: ModelConfig, rays: Rays, t_vals):
 
 
 def prop_forward(params: Params, cfg: ModelConfig, rays: Rays,
-                 randomized: bool, *, noise=None, generator=None):
+                 randomized: bool, *, noise=None, generator=None,
+                 pattern=None):
     """Proposal level (its first round): sample -> encode -> density ->
-    weights."""
+    weights. ``pattern``: the grid layout's multisample pattern of the
+    round (see :func:`_encode`)."""
     with span("model.sample"):
         t_vals = sample_along_rays(rays.near, rays.far, cfg.num_samples,
                                    randomized, noise=noise, generator=generator)
-    return t_vals, _prop_weights(params, cfg, rays, t_vals)
+    return t_vals, _prop_weights(params, cfg, rays, t_vals, 0, pattern)
 
 
-def _prop_weights(params: Params, cfg: ModelConfig, rays: Rays, t_vals):
-    x = _encode(cfg, rays, t_vals)
-    raw = apply_mlp(params["prop"], x, _prop_activations(cfg), _compute_dtype(cfg))
+def _prop_params(params: Params, cfg: ModelConfig, r: int):
+    """Proposal round ``r``'s subtree."""
+    return params["prop"][r] if cfg.distinct_proposals else params["prop"]
+
+
+def _prop_weights(params: Params, cfg: ModelConfig, rays: Rays, t_vals,
+                  r: int = 0, pattern=None):
+    prop = _prop_params(params, cfg, r)
+    x = _encode(cfg, rays, t_vals, r, prop.get("grid"), pattern)
+    raw = apply_mlp(prop, x, _prop_activations(cfg), _compute_dtype(cfg))
     with span("model.composite"):
         density = _softplus(raw[..., 0] + cfg.density_bias)
         return fused.compute_alpha_weights(
@@ -196,27 +272,29 @@ def _prop_weights(params: Params, cfg: ModelConfig, rays: Rays, t_vals):
 def prop_rounds(params: Params, cfg: ModelConfig, rays: Rays,
                 randomized: bool, *, noise: Optional[RenderNoise] = None,
                 generator=None):
-    """Every proposal round through the one proposal MLP: [(t_vals,
-    weights)] in order, each round after the first resampling
-    ``num_samples`` samples from the one before. ``noise``: the forward's
-    :class:`RenderNoise` (its NeRF part unused)."""
+    """Every proposal round through the proposal MLP (its own with
+    ``distinct_proposals``): [(t_vals, weights)] in order, each round after
+    the first resampling ``num_samples`` samples from the one before.
+    ``noise``: the forward's :class:`RenderNoise` (its NeRF part unused)."""
     first, jitters, _ = _noise_parts(cfg, noise)
     rounds = [prop_forward(params, cfg, rays, randomized, noise=first,
-                           generator=generator)]
-    for jitter in jitters:
+                           generator=generator,
+                           pattern=_pattern(cfg, noise, 0))]
+    for r, jitter in enumerate(jitters, start=1):
         t, w = rounds[-1]
         with span("model.sample"):
             t = fused.resample_along_rays(t, w, randomized,
                                           cfg.resample_padding, cfg.use_pallas,
                                           u_typo=cfg.resample_u_typo,
                                           noise=jitter, generator=generator)
-        rounds.append((t, _prop_weights(params, cfg, rays, t)))
+        rounds.append((t, _prop_weights(params, cfg, rays, t, r,
+                                        _pattern(cfg, noise, r))))
     return rounds
 
 
 def nerf_forward(params: Params, cfg: ModelConfig, rays: Rays, t_vals, weights,
                  randomized: bool, *, noise=None, generator=None,
-                 composite_fn=None, tp_group=None):
+                 composite_fn=None, tp_group=None, pattern=None):
     """NeRF level: resample -> encode -> trunk -> heads -> composite.
 
     With ``cfg.remat`` the tower (trunk, heads, view branch) runs under
@@ -228,7 +306,8 @@ def nerf_forward(params: Params, cfg: ModelConfig, rays: Rays, t_vals, weights,
     runs the tower on its own run of samples only, and the returned
     ``t_vals``, ``weights`` and ``s_vals`` are that run's. ``tp_group``:
     ``params["nerf"]["trunk"]`` is this rank's tensor-parallel shard over
-    that group (``parallel.mesh.shard_params``).
+    that group (``parallel.mesh.shard_params``). ``pattern``: the grid
+    layout's multisample pattern of the level (see :func:`_encode`).
     """
     with span("model.sample"):
         new_t = fused.resample_along_rays(t_vals, weights, randomized,
@@ -240,18 +319,26 @@ def nerf_forward(params: Params, cfg: ModelConfig, rays: Rays, t_vals, weights,
     if composite_fn is not None:
         sl = composite_fn.local_slice(new_t.shape[-1] - 1)
         new_t = new_t[..., sl.start:sl.stop + 1]
-    x = _encode(cfg, rays, new_t)
+    x = _encode(cfg, rays, new_t, cfg.proposal_rounds,
+                params["nerf"].get("grid"), pattern)
     dt = _compute_dtype(cfg)
 
     def tower(nerf, x, view):
         """The trunk under the density and rgb heads, or under the density
-        head and the bottleneck, with the view branch (``view``) on it."""
-        branch = "rgb" if view is None else "bottleneck"
-        y_density, y = apply_tower(
-            nerf["trunk"], [nerf[k]["layers"][0] for k in ("density", branch)],
-            x, _trunk_activations(cfg), dt, tp_group,
-            extras=[Extra(i) for i in cfg.skip_layers],
-            rounded_head=view is not None)
+        head and the bottleneck, or under the bottleneck alone whose channel
+        0 is the density, with the view branch (``view``) on it."""
+        if cfg.bottleneck_density:
+            (y,) = apply_tower(nerf["trunk"], nerf["bottleneck"]["layers"],
+                               x, _trunk_activations(cfg), dt, tp_group)
+            y_density = y[..., :1]
+        else:
+            branch = "rgb" if view is None else "bottleneck"
+            y_density, y = apply_tower(
+                nerf["trunk"],
+                [nerf[k]["layers"][0] for k in ("density", branch)],
+                x, _trunk_activations(cfg), dt, tp_group,
+                extras=[Extra(i) for i in cfg.skip_layers],
+                rounded_head=view is not None)
         with span("model.mlp"):
             raw_density = ACTIVATIONS[
                 "sigmoid" if cfg.density_head_sigmoid else "none"](y_density)
@@ -259,8 +346,9 @@ def nerf_forward(params: Params, cfg: ModelConfig, rays: Rays, t_vals, weights,
                 return raw_density, torch.sigmoid(y)
             view = view.to(dt)[..., None, :].expand(
                 x.shape[:-1] + view.shape[-1:])
-            return raw_density, apply_mlp(nerf["rgb"], y, ["relu", "sigmoid"],
-                                          dt, extras=[Extra(0, view)])
+            return raw_density, apply_mlp(
+                nerf["rgb"], y, ["relu"] * cfg.viewdir_depth + ["sigmoid"],
+                dt, extras=[Extra(0, view)])
 
     view = None
     if cfg.bottleneck_width:
@@ -305,16 +393,23 @@ def render_rays(params: Params, cfg: ModelConfig, rays: Rays, randomized: bool,
     ``w_prop`` (the first round's).
 
     With ``randomized``, ``noise`` supplies every level's uniform draws; when
-    it is None they are drawn from ``generator``. ``composite_fn`` and
+    it is None they are drawn from ``generator`` (on the grid layout all at
+    once, as :func:`draw_render_noise` draws them). ``composite_fn`` and
     ``tp_group`` apply to the NeRF level only (see :func:`nerf_forward`):
     the proposal level, whose weights feed the resampling, runs whole on
     every rank.
     """
+    if randomized and noise is None and pattern_intervals(cfg):
+        noise = draw_render_noise(
+            generator, rays.origins.shape[0], cfg.num_samples,
+            rays.origins.device, cfg.proposal_rounds, cfg.nerf_samples,
+            pattern_intervals(cfg))
     props = prop_rounds(params, cfg, rays, randomized, noise=noise,
                         generator=generator)
     out = nerf_forward(params, cfg, rays, *props[-1], randomized,
                        noise=_noise_parts(cfg, noise)[2], generator=generator,
-                       composite_fn=composite_fn, tp_group=tp_group)
+                       composite_fn=composite_fn, tp_group=tp_group,
+                       pattern=_pattern(cfg, noise, cfg.proposal_rounds))
     out["t_prop"], out["w_prop"] = props[0]
     out["props"] = props
     return out
@@ -397,14 +492,21 @@ class _MLP(nn.Module):
     def __init__(self, mlp):
         super().__init__()
         self.layers = nn.ModuleList(_Linear(layer) for layer in mlp["layers"])
+        if "grid" in mlp:
+            self.grid = nn.Parameter(torch.as_tensor(mlp["grid"]))
 
     def tree(self):
-        return {"layers": [{"w": l.w, "b": l.b} for l in self.layers]}
+        out = {"layers": [{"w": l.w, "b": l.b} for l in self.layers]}
+        if hasattr(self, "grid"):
+            out["grid"] = self.grid
+        return out
 
 
 class MipNeRF360(nn.Module):
     """The model's params as an ``nn.Module``, nested as the JAX tree
-    (state-dict keys ``prop.layers.0.w``, ``nerf.trunk.layers.3.b``, ...).
+    (state-dict keys ``prop.layers.0.w``, ``nerf.trunk.layers.3.b``, ...;
+    ``prop.0.layers.0.w``, ``prop.0.grid`` and ``nerf_grid`` on the grid
+    layout).
 
     ``params`` (a tree as :func:`init_model` or ``interop.params_from_jax``
     returns) defaults to :func:`init_model` with ``generator``.
@@ -416,18 +518,26 @@ class MipNeRF360(nn.Module):
         self.cfg = cfg
         if params is None:
             params = init_model(cfg, generator)
-        self.prop = _MLP(params["prop"])
+        self.prop = (nn.ModuleList(_MLP(p) for p in params["prop"])
+                     if cfg.distinct_proposals else _MLP(params["prop"]))
         self.nerf = nn.ModuleDict(
             {k: _MLP(params["nerf"][k])
              for k in ("trunk", "density", "bottleneck", "rgb")
              if k in params["nerf"]})
+        if "grid" in params["nerf"]:
+            self.nerf_grid = nn.Parameter(torch.as_tensor(
+                params["nerf"]["grid"]))
 
     def params(self) -> Params:
         """The parameters as the nested tree the functions take; its leaves
         are this module's ``nn.Parameter``s, so a loss built from it reaches
         them."""
-        return {"prop": self.prop.tree(),
-                "nerf": {k: m.tree() for k, m in self.nerf.items()}}
+        nerf = {k: m.tree() for k, m in self.nerf.items()}
+        if hasattr(self, "nerf_grid"):
+            nerf["grid"] = self.nerf_grid
+        prop = ([m.tree() for m in self.prop] if self.cfg.distinct_proposals
+                else self.prop.tree())
+        return {"prop": prop, "nerf": nerf}
 
     def forward(self, rays: Rays, randomized: bool = False, *,
                 noise: Optional[RenderNoise] = None,

@@ -267,7 +267,7 @@ def broadcast_state_(state) -> None:
     found no checkpoint to resume from."""
     with torch.no_grad():
         flat_broadcast_(_tensors(state), src=0)
-    device = state.params["prop"]["layers"][0]["w"].device
+    device = _tensors(state)[0].device
     gen = state.generator.get_state()
     counters = torch.tensor([state.step, state.sched_count] +
                             [a.count for a in state.opt_state.values()],

@@ -46,7 +46,7 @@ from ..losses.distillation import distillation_loss
 from ..losses.distortion import distortion_loss
 from ..losses.photometric import photometric_loss
 from ..models.mipnerf360 import (RenderNoise, draw_render_noise, map_params,
-                                 render_rays)
+                                 pattern_intervals, render_rays)
 from ..parallel.collectives import flat_all_reduce
 from ..utils.trace import span
 from .schedule import log_lerp_lr
@@ -76,9 +76,10 @@ def _step_noise(model_cfg, state, rays, noise, randomized, mesh):
     b = rays.origins.shape[0]
     full = draw_render_noise(state.generator, b * mesh.data,
                              model_cfg.num_samples, rays.origins.device,
-                             model_cfg.proposal_rounds, model_cfg.nerf_samples)
+                             model_cfg.proposal_rounds, model_cfg.nerf_samples,
+                             pattern_intervals(model_cfg))
     rows = slice(mesh.data_index * b, (mesh.data_index + 1) * b)
-    return RenderNoise(*(x[rows] for x in full))
+    return RenderNoise(*(None if x is None else x[rows] for x in full))
 
 
 def _sum_grads(grads, mesh):

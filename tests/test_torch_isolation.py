@@ -147,8 +147,10 @@ def test_build_without_nvcc_raises(tmp_path, monkeypatch):
         _build.find_nvcc()
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build(["composite"])
-    assert _build.source_names() == ["composite", "encode", "mlp_epilogue",
-                                     "mlp_gemm"]
+    assert _build.source_names() == ["composite", "encode", "hashgrid",
+                                     "mlp_epilogue", "mlp_gemm"]
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.build(["hashgrid"])
 
 
 def test_chip_smoke_refuses_alone_in_a_directory(tmp_path):

@@ -497,6 +497,11 @@ def _rows(**seconds):
 
 
 def _summary(kind):
+    """A traced segment's summary. The train one's model is the grid
+    layout's too (``encoding`` hashgrid, one proposal round and as many
+    NeRF samples, so that the other readers read the repo's layout), and
+    its kernels hold H1 and H2, so that the grid layout's readers have
+    something to read."""
     model = {"num_samples": 64, "hidden_proposal": 256, "proposal_depth": 4,
              "hidden_nerf": 1024, "nerf_depth": 8, "ipe_min_deg": 0,
              "ipe_max_deg": 12, "viewdir_min_deg": 0, "viewdir_max_deg": 4}
@@ -505,11 +510,21 @@ def _summary(kind):
                ("composite_bwd_regs", 20, 0.003), ("vectorized_elementwise",
                                                    900, 1.25)]
     if kind == "train":
-        return {"kind": "train", "model": model,
+        grid = {"encoding": "hashgrid", "proposal_rounds": 1,
+                "nerf_samples": 64, "bottleneck_width": 256,
+                "viewdir_width": 256, "viewdir_depth": 2,
+                "compute_dtype": "bfloat16", "grid_levels": 10,
+                "grid_min_res": 16, "grid_max_res": "512,8192",
+                "grid_features": "1,4", "grid_log2_table": 21}
+        return {"kind": "train", "model": dict(model, **grid),
                 "window": {"rate": 45000.0, "chunk_s": [1.8, 1.9, 1.85]},
-                "segment": {"steps": 20, "rays": 81920,
+                "segment": {"steps": 20, "rays": 81920, "grid": [],
                             "composite": {"K1": [4096, 64], "K2": [4096, 64]}},
-                "kernels": kernels, "busy_s": 1.72, "wall_s": 1.9}
+                "kernels": kernels + [("hashgrid_fwd<1, unsigned short>", 40,
+                                       0.02),
+                                      ("hashgrid_bwd<4, unsigned short>", 40,
+                                       0.05)],
+                "busy_s": 1.72, "wall_s": 1.9}
     return {"kind": "render", "model": model,
             "window": {"rate": 111000.0, "view_s": [2.45, 2.5]},
             "segment": {"views": 1, "rays": 272160,
